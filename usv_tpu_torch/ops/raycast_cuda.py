@@ -1,0 +1,225 @@
+"""The ray-cast CUDA kernel's launcher and its plain PyTorch version.
+
+:func:`raycast_cuda` launches ``csrc/raycast.cu``, the port of the TPU kernel
+``_batched_kernel`` (``usv_tpu/ops/raycast_pallas.py``), on PyTorch's current
+stream. On CPU tensors it returns :func:`raycast_cuda_reference` instead, and
+only then: on a CUDA tensor it launches the kernel or raises.
+
+:func:`raycast_cuda_reference` repeats the kernel's arithmetic — the
+lateral fold, the squared-space hit test and its clamp, the strict
+first-slot-wins order, every option — as masked ``(B, R, K)`` tensor ops. The
+tests and ``chip_smoke.py`` hold the kernel against it; the main path never
+calls it on the card. It runs in the inputs' dtype, so in float64 it serves
+as the tangency oracle.
+
+Not ported yet: the TPU kernel's ``n_acc`` accumulator split (an ILP device
+for the TPU's loop-carried chain; only ``n_acc`` of 1 or None is accepted)
+and the ``USV_RAYCAST_*`` environment-variable defaults (not read).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from functools import lru_cache
+
+import torch
+
+from usv_tpu_torch import _build
+from usv_tpu_torch.ops.raycast import DEFAULT_SPAN, FIRST_RAY, ray_table
+
+# the kernel's dynamic shared memory without an opt-in attribute
+_SMEM_LIMIT = 48 * 1024
+
+
+class LaunchCounter:
+    """Kernel launches made by :func:`raycast_cuda`: a plain integer that a
+    caller may reset, raised by one where the kernel launches and nowhere
+    else."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+counter = LaunchCounter()
+
+
+def _check_n_acc(n_acc):
+    if n_acc not in (None, 1):
+        raise ValueError(
+            f"n_acc={n_acc!r}: the accumulator split is not ported; use 1 or None"
+        )
+
+
+@lru_cache(maxsize=None)
+def _library():
+    """The kernel's library, built on first use, with its C signatures."""
+    lib = _build.load("raycast")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.usv_raycast_launch.argtypes = [p] * 7 + [i, i, i, f, f, i, i, i, i, p]
+    lib.usv_raycast_launch.restype = ctypes.c_int
+    lib.usv_raycast_block_dims.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.usv_raycast_block_dims.restype = None
+    return lib
+
+
+@lru_cache(maxsize=None)
+def _envs_per_block(sensor_count: int) -> int:
+    rays, envs = ctypes.c_int(), ctypes.c_int()
+    _library().usv_raycast_block_dims(sensor_count, ctypes.byref(rays), ctypes.byref(envs))
+    return envs.value
+
+
+def _check_inputs(**tensors):
+    """Shapes (B, 3), (B, K, 2), (B, K)...; float32 but the bool mask; one
+    device; contiguous. Returns (B, K)."""
+    position, obs_r = tensors["position"], tensors["obs_r"]
+    B = position.shape[0]
+    K = obs_r.shape[-1] if obs_r.dim() == 2 else -1
+    expect = {
+        "position": ((B, 3), torch.float32),
+        "obs_xy": ((B, K, 2), torch.float32),
+        "obs_r": ((B, K), torch.float32),
+        "obs_mask": ((B, K), torch.bool),
+        "boundary_distance": ((B, K), torch.float32),
+    }
+    device = position.device
+    for name, t in tensors.items():
+        shape, dtype = expect[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, position on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return B, K
+
+
+def raycast_cuda(
+    position,           # (B, 3) float32
+    obs_xy,             # (B, K, 2) float32
+    obs_r,              # (B, K) float32
+    obs_mask,           # (B, K) bool
+    sensor_count: int,
+    sensor_max_range: float,
+    sensor_span: float = DEFAULT_SPAN,
+    boundary_distance=None,   # (B, K) float32
+    first_hit: bool = True,
+    n_acc=None,
+    angle_addition: bool = True,
+    fold_lateral: bool = True,
+    defer_sqrt: bool = True,
+):
+    """Batched ray-cast -> (B, R) float32: the TPU kernel's function and options.
+
+    ``boundary_distance`` is the first-hit ordering key; it defaults to
+    ``hypot(obs - boat) - r``.
+    """
+    _check_n_acc(n_acc)
+    B, K = _check_inputs(position=position, obs_xy=obs_xy, obs_r=obs_r, obs_mask=obs_mask)
+    if boundary_distance is None:
+        n = obs_xy - position[:, None, :2]
+        boundary_distance = torch.hypot(n[..., 0], n[..., 1]) - obs_r
+    _check_inputs(position=position, obs_r=obs_r, boundary_distance=boundary_distance)
+    if position.device.type == "cpu":
+        return raycast_cuda_reference(
+            position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
+            sensor_span, boundary_distance, first_hit, n_acc, angle_addition,
+            fold_lateral, defer_sqrt,
+        )
+    if position.device.type != "cuda":
+        raise ValueError(f"raycast_cuda: unsupported device {position.device}")
+
+    # shared memory: four float32 scalars per obstacle slot per env of a block
+    if _envs_per_block(sensor_count) * 4 * K * 4 > _SMEM_LIMIT:
+        raise ValueError(f"raycast_cuda: K={K} obstacles exceed the kernel's shared memory")
+    ray_cs = ray_table(sensor_count, float(sensor_span), torch.float32, position.device)
+    out = torch.empty((B, sensor_count), dtype=torch.float32, device=position.device)
+    with torch.cuda.device(position.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().usv_raycast_launch(
+            position.data_ptr(), obs_xy.data_ptr(), obs_r.data_ptr(),
+            obs_mask.view(torch.uint8).data_ptr(), boundary_distance.data_ptr(),
+            ray_cs.data_ptr(), out.data_ptr(),
+            B, sensor_count, K, float(sensor_max_range),
+            float(sensor_span / sensor_count),
+            int(first_hit), int(defer_sqrt), int(fold_lateral),
+            int(angle_addition), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
+    counter.launches += 1
+    return out
+
+
+def raycast_cuda_reference(
+    position,
+    obs_xy,
+    obs_r,
+    obs_mask,
+    sensor_count: int,
+    sensor_max_range: float,
+    sensor_span: float = DEFAULT_SPAN,
+    boundary_distance=None,
+    first_hit: bool = True,
+    n_acc=None,
+    angle_addition: bool = True,
+    fold_lateral: bool = True,
+    defer_sqrt: bool = True,
+):
+    """The kernel's arithmetic as masked (B, R, K) tensor ops, in the inputs'
+    dtype. Same arguments and result as :func:`raycast_cuda`."""
+    _check_n_acc(n_acc)
+    dtype, device = position.dtype, position.device
+    max_range = float(sensor_max_range)
+    resolution = sensor_span / sensor_count
+    x, y, psi = position[:, 0:1], position[:, 1:2], position[:, 2:3]  # (B, 1)
+    if angle_addition:
+        ray_c, ray_s = ray_table(sensor_count, float(sensor_span), dtype, device)
+        cp, sp = torch.cos(psi), torch.sin(psi)
+        c = cp * ray_c - sp * ray_s  # (B, R)
+        s = sp * ray_c + cp * ray_s
+    else:
+        ray = torch.arange(sensor_count, dtype=dtype, device=device)
+        angles = (psi + FIRST_RAY) + ray * resolution
+        c, s = torch.cos(angles), torch.sin(angles)
+
+    nx = (obs_xy[..., 0] - x)[:, None, :]  # (B, 1, K)
+    ny = (obs_xy[..., 1] - y)[:, None, :]
+    r = obs_r[:, None, :]
+    c, s = c[:, :, None], s[:, :, None]     # (B, R, 1)
+    xk = c * nx + s * ny                    # (B, R, K)
+    if fold_lateral:
+        delta = (r * r - (nx * nx + ny * ny)) + xk * xk
+    else:
+        yk = s * nx - c * ny
+        delta = r * r - yk * yk
+
+    if not first_hit:
+        dist = xk - torch.sqrt(torch.clamp_min(delta, 0.0))
+        valid = (xk >= 0.0) & (delta >= 0.0) & obs_mask[:, None, :]
+        return torch.clamp_max(torch.where(valid, dist, max_range).amin(-1), max_range)
+
+    if boundary_distance is None:
+        n = obs_xy - position[:, None, :2]
+        boundary_distance = torch.hypot(n[..., 0], n[..., 1]) - obs_r
+    key = torch.where(obs_mask, boundary_distance, math.inf)[:, None, :]
+    if defer_sqrt:
+        t = torch.clamp_min(xk - max_range, 0.0)
+        hit = (xk >= 0.0) & (delta >= t * t)
+    else:
+        dist = xk - torch.sqrt(delta)  # NaN on a miss fails the range test
+        hit = (xk >= 0.0) & (dist < max_range)
+    # the kernel's strict `key < best` over ascending slots: the least key
+    # wins, the first slot on a tie; +inf and NaN keys never win
+    cand = torch.where(hit & (key < math.inf), key, math.inf)
+    best_key = cand.amin(-1, keepdim=True)
+    idx = cand.argmin(-1, keepdim=True)  # first occurrence of the minimum
+    if defer_sqrt:
+        bx, bd = xk.gather(-1, idx), delta.gather(-1, idx)
+        picked = torch.clamp_max(bx - torch.sqrt(bd), max_range)
+    else:
+        picked = dist.gather(-1, idx)
+    return torch.where(torch.isfinite(best_key), picked, max_range)[..., 0]
