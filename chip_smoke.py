@@ -11,15 +11,19 @@ PyTorch version on the card. Phases, each of which exits non-zero on failure:
 1. the card: name and power limit (nvidia-smi), device name and count;
 2. the build, with its registers and spills (``-Xptxas -v``);
 3. the kernel against its plain version at the main-path shapes and at
-   ragged/narrow ones, for every option combination (atol=1e-4, nothing
-   above max_range, no NaN), and on grazing-incidence scenes against the
-   plain version in float64 (the tangency bounds of the JAX suite);
+   ragged/narrow ones, for every option combination and for ``n_acc`` 2 to 4
+   (atol=1e-4, nothing above max_range, no NaN); the same on the edges of
+   its slot compaction (a mask all false, all true, K=5, K=40) and on
+   duplicated keys, where the tie order shows; and on grazing-incidence
+   scenes against the plain version in float64 (the tangency bounds of the
+   JAX suite);
 4. the main path: a small run on the card against the same run on the CPU
    (atol=1e-4), then ``rollout`` and ``throughput`` at 4096 envs x 2048
    steps, with the kernel launched exactly once per step;
 5. one step's kernels and device time (torch.profiler), for the idle share;
 6. the kernel's device time (CUDA events around a replayed CUDA graph)
-   beside its plain version's and its bound.
+   beside its plain version's, its bound and the issue ceiling, at the three
+   shapes the system launches, and with ``n_acc`` 1, 2 and 4 at the first.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -31,7 +35,6 @@ from __future__ import annotations
 import itertools
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -51,6 +54,10 @@ PEAK_F32_PER_S = 67e12
 # f32 operations per ray-obstacle pair of the default kernel path
 # (csrc/raycast.cu: xk 3, delta 2, t 2, t*t 1, three compares, three selects)
 OPS_PER_PAIR = 14
+# The data sheet's float32 peak counts a fused multiply-add as two. The
+# kernel's operations are unfused (-fmad=false), one issue slot each: a kernel
+# that evaluates every valid pair cannot go under this ceiling, twice the bound.
+PEAK_F32_SLOTS_PER_S = PEAK_F32_PER_S / 2
 
 
 def check(cond, msg):
@@ -86,41 +93,79 @@ def scene(cfg, num_envs, generator, device, scatter):
     return pos.contiguous(), s.obs_xy, s.obs_r, s.obs_mask, boundary.contiguous()
 
 
+def compare_with_plain(label, args, max_range, **kw):
+    """One launch against the plain version; returns (max |difference|, output)."""
+    from usv_tpu_torch.ops.raycast_cuda import raycast_cuda, raycast_cuda_reference
+
+    got = raycast_cuda(*args, **kw)
+    want = raycast_cuda_reference(*args, **kw)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)}")
+    check(not torch.isnan(got).any(), f"{label} {kw}: NaN in the kernel's output")
+    check(bool((got <= max_range).all()), f"{label} {kw}: output above max_range")
+    err = float((got - want).abs().max())
+    check(err <= ATOL, f"{label} {kw}: max |kernel - plain| = {err}")
+    return err, got
+
+
 def check_kernel(device):
     """Kernel vs plain version; returns the largest |difference| seen."""
     from usv_tpu_torch.envs.simple import SimpleEnvConfig
-    from usv_tpu_torch.ops.raycast_cuda import raycast_cuda, raycast_cuda_reference
 
     g = torch.Generator(device=device)
     g.manual_seed(0)
-    shapes = [  # (label, B, R, K, scatter)
-        ("main path, reset", NUM_ENVS, 128, 32, False),
-        ("main path, scattered", NUM_ENVS, 128, 32, True),
-        ("ragged CA", NUM_ENVS + 1, 16, 16, True),
-        ("curved", NUM_ENVS, 32, 16, True),
+    shapes = [  # (label, B, R, K, scatter, mask)
+        ("main path, reset", NUM_ENVS, 128, 32, False, None),
+        ("main path, scattered", NUM_ENVS, 128, 32, True, None),
+        ("ragged CA", NUM_ENVS + 1, 16, 16, True, None),
+        ("curved", NUM_ENVS, 32, 16, True, None),
+        ("no slot valid", 1024, 128, 32, True, False),
+        ("every slot valid", 1024, 128, 32, True, True),
+        ("K under a warp", 1024, 128, 5, True, None),
+        ("K over a warp", 1024, 16, 40, True, None),
+        ("finger-thin obstacles", 1024, 128, 32, True, "thin"),
     ]
     worst = 0.0
-    for label, B, R, K, scatter in shapes:
+    for label, B, R, K, scatter, fill in shapes:
         cfg = SimpleEnvConfig(sensor_count=R, obstacle_cap=K)
-        args = scene(cfg, B, g, device, scatter)
-        pos, oxy, orr, mask, bd = args
+        pos, oxy, orr, mask, bd = scene(cfg, B, g, device, scatter)
+        if fill == "thin":  # every hit a graze: the cone culling's hardest case
+            orr = orr * 0.02
+        elif fill is not None:
+            mask = torch.full_like(mask, fill)
+        args = (pos, oxy, orr, mask, R, cfg.sensor_max_range, cfg.sensor_span)
         for fh, defer, fold, aa in itertools.product([True, False], repeat=4):
-            kw = dict(boundary_distance=bd, first_hit=fh, defer_sqrt=defer,
-                      fold_lateral=fold, angle_addition=aa)
-            got = raycast_cuda(pos, oxy, orr, mask, R, cfg.sensor_max_range, cfg.sensor_span, **kw)
-            want = raycast_cuda_reference(pos, oxy, orr, mask, R, cfg.sensor_max_range,
-                                          cfg.sensor_span, **kw)
-            torch.cuda.synchronize()
-            check(got.shape == (B, R), f"{label}: shape {tuple(got.shape)}")
-            check(not torch.isnan(got).any(), f"{label} {kw}: NaN in the kernel's output")
-            check(bool((got <= cfg.sensor_max_range).all()), f"{label}: output above max_range")
-            err = float((got - want).abs().max())
-            check(err <= ATOL, f"{label} first_hit={fh} defer={defer} fold={fold} "
-                  f"angle_add={aa}: max |kernel - plain| = {err}")
+            err, got = compare_with_plain(label, args, cfg.sensor_max_range, boundary_distance=bd,
+                                          first_hit=fh, defer_sqrt=defer, fold_lateral=fold,
+                                          angle_addition=aa)
+            worst = max(worst, err)
+        for fh, n_acc in itertools.product([True, False], [2, 3, 4]):
+            err, got = compare_with_plain(label, args, cfg.sensor_max_range, boundary_distance=bd,
+                                          first_hit=fh, n_acc=n_acc)
             worst = max(worst, err)
         hits = float((got < cfg.sensor_max_range).float().mean())
-        print(f"  {label}: B={B} R={R} K={K}, 16 option sets, max err so far {worst:.3g}, "
-              f"hit share {hits:.3f}", flush=True)
+        print(f"  {label}: B={B} R={R} K={K}, 16 option sets and n_acc 2-4, "
+              f"max err so far {worst:.3g}, hit share {hits:.3f}", flush=True)
+
+    # every obstacle twice, in slots k and K - 1 - k, with one key and two
+    # radii: which slot wins the tie decides the distance
+    cfg = SimpleEnvConfig()
+    pos, oxy, orr, mask, _ = scene(cfg, 1024, g, device, True)
+    half = oxy.shape[1] // 2
+    oxy = torch.cat([oxy[:, :half], oxy[:, :half].flip(1)], 1).contiguous()
+    orr = torch.cat([orr[:, :half], orr[:, :half].flip(1) + 0.25], 1).contiguous()
+    n = oxy - pos[:, None, :2]
+    key = torch.hypot(n[..., 0], n[..., 1]).contiguous()
+    args = (pos, oxy, orr, torch.ones_like(mask), cfg.sensor_count, cfg.sensor_max_range,
+            cfg.sensor_span)
+    outs = []
+    for n_acc, defer in itertools.product([1, 2, 3, 4], [True, False]):
+        err, got = compare_with_plain("duplicated keys", args, cfg.sensor_max_range,
+                                      boundary_distance=key, n_acc=n_acc, defer_sqrt=defer)
+        worst = max(worst, err)
+        outs.append(got)
+    check(not torch.equal(outs[0], outs[2]), "duplicated keys: n_acc 1 and 2 agree, no tie is live")
+    print(f"  duplicated keys: n_acc 1-4, max err so far {worst:.3g}", flush=True)
     return worst
 
 
@@ -210,36 +255,6 @@ def check_small_run_against_cpu(device):
     print(f"  card vs CPU, {B} envs x {T} steps: {flips} of {rays} rays differ by > {ATOL}")
 
 
-def time_cuda(fn, iters):
-    """ms per call of ``fn`` by CUDA events around ``iters`` back-to-back calls."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def time_device(fn, calls=20, replays=10):
-    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
-    graph, replayed ``replays`` times between CUDA events, so the host's
-    per-call Python cost (more than the kernel's own time for the ray-cast
-    wrapper) does not set the pace."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up off the default stream, as capture requires
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return time_cuda(graph.replay, replays) / calls
-
-
 def step_anatomy(handle, state, generator, wall_ms):
     """Kernels and device time of one auto-reset step at the main-path
     width (torch.profiler over 20 steps) against the unprofiled wall time."""
@@ -274,7 +289,9 @@ def main():
         return 1
     from usv_tpu_torch import _build
     from usv_tpu_torch.envs import make
+    from usv_tpu_torch.envs.simple import SimpleEnvConfig
     from usv_tpu_torch.ops import raycast_cuda as rc
+    from usv_tpu_torch.timing import time_cuda, time_device
     from usv_tpu_torch.vector import rollout, throughput
 
     device = torch.device("cuda")
@@ -290,13 +307,18 @@ def main():
     logs = _build.build(force=True)
     print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
-        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = [(int(a), int(b)) for a, b in
-                  re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-        check(regs and spills, f"{name}: no -Xptxas -v report in the build output")
-        print(f"  {name}: {len(regs)} kernel instances, registers {min(regs)}-{max(regs)}, "
-              f"spill stores up to {max(a for a, _ in spills)} B, "
-              f"spill loads up to {max(b for _, b in spills)} B")
+        report = _build.ptxas_report(log)
+        check(report, f"{name}: no -Xptxas -v report in the build output")
+        regs = [r[1] for r in report]
+        print(f"  {name}: {len(report)} kernel instances, registers {min(regs)}-{max(regs)}, "
+              f"spill stores up to {max(r[2] for r in report)} B, "
+              f"spill loads up to {max(r[3] for r in report)} B")
+        # <first hit, defer, fold, angle addition, n_acc 1> with 4 rays and 1 ray a thread
+        for rays in (4, 1):
+            for entry, n_regs, stores, loads in report:
+                if f"Lb1ELb1ELb1ELb1ELi1ELi{rays}E" in entry:
+                    print(f"    default mode, {rays} ray(s) a thread: {n_regs} registers, "
+                          f"{stores} B spill stores, {loads} B spill loads")
 
     phase("kernel vs plain version")
     max_err = check_kernel(device)
@@ -332,25 +354,50 @@ def main():
     step_anatomy(handle, state, g, out["seconds"] / N_STEPS * 1e3)
 
     phase("kernel time")
+
+    def time_shape(label, args, bd, mask, n_accs=(1,)):
+        """Device ms of kernel and plain version on these inputs, with the
+        bound and the issue ceiling this data gives."""
+        B, K = mask.shape
+        R = args[4]
+        row = {"B": B, "R": R, "K": K}
+        for n_acc in n_accs:
+            ms = time_device(lambda: rc.raycast_cuda(*args, boundary_distance=bd, n_acc=n_acc))
+            row["ms" if n_acc == 1 else f"ms_n_acc{n_acc}"] = ms
+        row["plain_ms"] = time_device(lambda: rc.raycast_cuda_reference(*args, boundary_distance=bd))
+        in_bytes = B * (3 * 4 + K * 2 * 4 + K * 4 + K * 1 + K * 4)
+        out_bytes = B * R * 4
+        pairs = R * int(mask.sum())  # the slots this data needs
+        bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+        ops_ms = OPS_PER_PAIR * pairs / PEAK_F32_PER_S * 1e3
+        row.update(bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, valid_pairs=pairs,
+                   issue_ceiling_ms=OPS_PER_PAIR * pairs / PEAK_F32_SLOTS_PER_S * 1e3)
+        extra = "".join(f", n_acc {n} {row[f'ms_n_acc{n}']:.5f} ms" for n in n_accs if n > 1)
+        print(f"  {label} B={B} R={R} K={K}: kernel {row['ms']:.5f} ms{extra}, "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
+              f"(bytes {bytes_ms:.5f} ms for {in_bytes + out_bytes} B; operations {ops_ms:.5f} ms "
+              f"for {pairs} valid pairs x {OPS_PER_PAIR}), issue ceiling for unfused operations "
+              f"{row['issue_ceiling_ms']:.5f} ms", flush=True)
+        return row
+
     cfg = handle.cfg
     n = state.obs_xy - state.position[:, None, :2]
     bd = torch.hypot(n[..., 0], n[..., 1]) - state.obs_r
     args = (state.position, state.obs_xy, state.obs_r, state.obs_mask, cfg.sensor_count,
             cfg.sensor_max_range, cfg.sensor_span)
     call_ms = time_cuda(lambda: rc.raycast_cuda(*args, boundary_distance=bd), 200)
-    kernel_ms = time_device(lambda: rc.raycast_cuda(*args, boundary_distance=bd))
-    plain_ms = time_device(lambda: rc.raycast_cuda_reference(*args, boundary_distance=bd))
-    B, K, R = state.obs_r.shape[0], state.obs_r.shape[1], cfg.sensor_count
-    in_bytes = B * (3 * 4 + K * 2 * 4 + K * 4 + K * 1 + K * 4)
-    out_bytes = B * R * 4
-    pairs = R * int(state.obs_mask.sum())  # the slots this state's data needs
-    bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-    ops_ms = OPS_PER_PAIR * pairs / PEAK_F32_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    print(f"  kernel {kernel_ms:.5f} ms (an eager call from Python {call_ms:.5f} ms), "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"(bytes {bytes_ms:.5f} ms for {in_bytes + out_bytes} B; operations {ops_ms:.5f} ms "
-          f"for {pairs} valid pairs x {OPS_PER_PAIR})")
+    main_row = time_shape("main path, the rollout's last state,", args, bd, state.obs_mask,
+                          n_accs=(1, 2, 4))
+    print(f"  an eager call from Python {call_ms:.5f} ms")
+    other_rows = []
+    for label, R, K in (("CA env's shape, reset state,", 16, 16), ("curved env's shape, reset state,", 32, 16)):
+        other = SimpleEnvConfig(sensor_count=R, obstacle_cap=K)
+        pos, oxy, orr, mask, obd = scene(other, NUM_ENVS, g, device, scatter=False)
+        other_rows.append(time_shape(label, (pos, oxy, orr, mask, R, other.sensor_max_range,
+                                             other.sensor_span), obd, mask))
+    kernel_ms, plain_ms, bound_ms = main_row["ms"], main_row["plain_ms"], main_row["bound_ms"]
 
     record = {
         "name": "raycast",
@@ -364,10 +411,14 @@ def main():
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "issue_ceiling_ms": main_row["issue_ceiling_ms"],
+        "ms_n_acc2": main_row["ms_n_acc2"],
+        "ms_n_acc4": main_row["ms_n_acc4"],
         "eager_call_ms": call_ms,
         "env_steps_per_s": out["steps_per_second"],
+        "other_shapes": other_rows,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

@@ -4,7 +4,10 @@ CUDA. Run them on a machine with one:
     python -m pytest -m gpu tests/test_torch_*.py
 
 * The ray-cast kernel against its plain version, at several shapes and every
-  option combination: atol=1e-4, nothing above max_range, no NaN.
+  option combination: atol=1e-4, nothing above max_range, no NaN. The same
+  for the edges of its slot compaction (a mask all false or all true, K under
+  and over one warp), for ``n_acc`` 2 to 4, and on duplicated keys, where
+  the tie order shows.
 * The kernel on the tangency scenes of ``tests/test_raycast_pallas.py``
   against the float64 native oracle, with that suite's bounds.
 * The auto-reset step on the card against the same step on the CPU, and one
@@ -59,20 +62,127 @@ def test_kernel_matches_plain_version(cuda, B, R, K):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=str(kw))
 
 
+def _assert_kernel_is_plain(args, **kw):
+    got = raycast_cuda(*args, **kw)
+    want = raycast_cuda_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isnan(got).any()
+    assert (got <= MAXR).all()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=str(kw))
+    return got
+
+
+@pytest.mark.parametrize("first_hit", [True, False])
+@pytest.mark.parametrize("edge", ["all_false", "all_true", "K5", "K40"])
+def test_kernel_compaction_edges(cuda, edge, first_hit):
+    K = {"K5": 5, "K40": 40}.get(edge, 32)
+    pos, oxy, orr, mask = _scene(517, K, 11, cuda)
+    if edge == "all_false":
+        mask = torch.zeros_like(mask)
+    elif edge == "all_true":
+        mask = torch.ones_like(mask)
+    for R in (128, 16):
+        for defer, n_acc in itertools.product([True, False], [1, 3]):
+            got = _assert_kernel_is_plain((pos, oxy, orr, mask, R, MAXR), first_hit=first_hit,
+                                          defer_sqrt=defer, n_acc=n_acc)
+            assert edge != "all_false" or (got == MAXR).all()
+
+
+@pytest.mark.parametrize("n_acc", [2, 3, 4])
+@pytest.mark.parametrize("B,R,K", [(4096, 128, 32), (4097, 16, 16), (513, 32, 16), (7, 200, 5)])
+def test_kernel_n_acc_matches_plain_version(cuda, B, R, K, n_acc):
+    pos, oxy, orr, mask = _scene(B, K, B + R, cuda)
+    for fh, defer, fold, aa in itertools.product([True, False], repeat=4):
+        _assert_kernel_is_plain((pos, oxy, orr, mask, R, MAXR), first_hit=fh, defer_sqrt=defer,
+                                fold_lateral=fold, angle_addition=aa, n_acc=n_acc)
+
+
+@pytest.mark.parametrize("R", [128, 16, 200])
+@pytest.mark.parametrize("case", ["thin_far", "boat_inside", "on_the_boat", "huge", "denormal",
+                                  "between_groups"])
+def test_kernel_cone_culling_keeps_every_hit(cuda, case, R):
+    """The kernel gives each group of rays only the slots inside its cone.
+    Where the cone test is in doubt it must keep the slot: the outputs stay
+    those of the plain version, bit for bit."""
+    B, K = 1100, 32  # enough rays for four a thread at R=128 and 200, one at R=16
+    pos, oxy, orr, mask = _scene(B, K, 17, cuda)
+    mask = torch.ones_like(mask)
+    if case == "thin_far":       # finger-thin obstacles out to 80 m: hits are grazes
+        oxy = pos[:, None, :2] + (oxy - pos[:, None, :2]) * 3.0
+        orr = orr * 0.02
+    elif case == "boat_inside":  # the boat inside or on the rim of wide obstacles
+        d = torch.hypot(*(oxy - pos[:, None, :2]).unbind(-1))
+        orr = d * torch.linspace(0.4, 1.6, K, device=cuda)
+    elif case == "on_the_boat":  # centre distance 0, and radius 0
+        oxy[:, ::2] = pos[:, None, :2]
+        orr[:, ::4] = 0.0
+    elif case == "huge":         # d^2 overflows float32
+        oxy = oxy * 1e19
+    elif case == "denormal":     # d^2 is denormal or 0
+        oxy = pos[:, None, :2] + (oxy - pos[:, None, :2]) * 1e-21
+        orr = orr * 1e-21
+    elif case == "between_groups":  # obstacles on the directions where two groups meet
+        res = (2.0 / 3.0) * 2.0 * math.pi / R
+        edge = pos[:, 2:3] - 2.0 * math.pi / 3.0 + res * (
+            torch.randint(1, 8, (B, K), device=cuda) * (R // 8) - 0.5)
+        dist = torch.rand((B, K), device=cuda) * 80 + 1
+        oxy = (pos[:, None, :2] + dist[..., None] * torch.stack([edge.cos(), edge.sin()], -1))
+        orr = torch.rand((B, K), device=cuda) * res * dist
+    oxy, orr = oxy.contiguous(), orr.contiguous()
+    for fh, defer, fold in itertools.product([True, False], repeat=3):
+        kw = dict(first_hit=fh, defer_sqrt=defer, fold_lateral=fold)
+        got = raycast_cuda(pos, oxy, orr, mask, R, MAXR, **kw)
+        want = raycast_cuda_reference(pos, oxy, orr, mask, R, MAXR, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.nan_to_num(nan=-1.0), want.nan_to_num(nan=-1.0)), (case, kw)
+    if case in ("thin_far", "between_groups", "boat_inside"):
+        assert (want < MAXR).any()  # the case does meet obstacles
+
+
+def _duplicated_keys(B, K, seed, device):
+    """Every obstacle twice, in slots k and K - 1 - k, with the same key and
+    another radius: which slot wins the tie decides the distance."""
+    pos, oxy, orr, mask = _scene(B, K, seed, device)
+    half = K // 2
+    oxy = torch.cat([oxy[:, :half], oxy[:, :half].flip(1)], 1).contiguous()
+    orr = torch.cat([orr[:, :half], orr[:, :half].flip(1) + 0.25], 1).contiguous()
+    n = oxy - pos[:, None, :2]
+    key = torch.hypot(n[..., 0], n[..., 1]).contiguous()
+    return pos, oxy, orr, torch.ones_like(mask), key
+
+
+@pytest.mark.parametrize("n_acc", [1, 2, 3, 4])
+def test_kernel_tie_order_on_duplicated_keys(cuda, monkeypatch, n_acc):
+    pos, oxy, orr, mask, key = _duplicated_keys(256, 16, 5, cuda)
+    args = (pos, oxy, orr, mask, 128, MAXR)
+    got = _assert_kernel_is_plain(args, boundary_distance=key, n_acc=n_acc)
+    for defer in (True, False):
+        _assert_kernel_is_plain(args, boundary_distance=key, n_acc=n_acc, defer_sqrt=defer)
+    # the ties are live: another split gives another answer somewhere
+    others = [raycast_cuda(*args, boundary_distance=key, n_acc=m) for m in (1, 2, 3, 4)]
+    assert any(not torch.equal(got, o) for o in others)
+    # the variable reaches the kernel where the argument is left out, as through dispatch
+    monkeypatch.setenv("USV_RAYCAST_NACC", str(n_acc))
+    assert torch.equal(raycast_cuda(*args, boundary_distance=key), got)
+
+
 def test_kernel_counts_launches_and_rejects_bad_inputs(cuda):
     pos, oxy, orr, mask = _scene(64, 8, 0, cuda)
     before = counter.launches
     raycast_cuda(pos, oxy, orr, mask, 32, MAXR)
     assert counter.launches == before + 1
     with pytest.raises(ValueError, match="n_acc"):
-        raycast_cuda(pos, oxy, orr, mask, 32, MAXR, n_acc=2)
+        raycast_cuda(pos, oxy, orr, mask, 32, MAXR, n_acc=5)
+    assert torch.equal(raycast_cuda(pos, oxy, orr, mask, 32, MAXR, n_acc=0),
+                       raycast_cuda(pos, oxy, orr, mask, 32, MAXR, n_acc=1))
+    before += 2
     with pytest.raises(ValueError, match="on cpu"):
         raycast_cuda(pos, oxy.cpu(), orr, mask, 32, MAXR)
     big = torch.zeros((1, 4000), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         raycast_cuda(pos[:1], torch.zeros((1, 4000, 2), device=cuda), big,
                      big.bool(), 128, MAXR)
-    assert counter.launches == before + 1
+    assert counter.launches == before + 1  # nothing that raised counts
 
 
 _R16 = 16

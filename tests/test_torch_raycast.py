@@ -6,6 +6,9 @@
 * ``raycast_cuda_reference`` (the CUDA kernel's plain version) against the
   TPU kernel itself, ``raycast_pallas_batched(interpret=True)``, for every
   option combination: atol=1e-4, and no output above max_range.
+* The plain version's ``n_acc`` accumulator split against the TPU kernel's,
+  its tie order on a scene with duplicated keys, and the
+  ``USV_RAYCAST_*`` defaults read at the call.
 * The float32 plain version against the float64 native oracle on the
   grazing-incidence tangency scenes of ``tests/test_raycast_pallas.py``,
   with that suite's bounds.
@@ -30,7 +33,8 @@ from usv_tpu_torch.ops.raycast import DEFAULT_SPAN
 from usv_tpu_torch.ops.raycast import raycast as t_raycast
 from usv_tpu_torch.ops.raycast import raycast_first_hit_compat as t_first_hit
 from usv_tpu_torch.ops.raycast import sensor_angles as t_sensor_angles
-from usv_tpu_torch.ops.raycast_cuda import counter, raycast_cuda, raycast_cuda_reference
+from usv_tpu_torch.ops.raycast_cuda import (
+    counter, raycast_cuda, raycast_cuda_reference, resolve_options)
 
 ATOL = 1e-4
 MAXR = 100.0
@@ -91,10 +95,10 @@ def test_first_hit_default_boundary_and_sensor_angles_match_jax():
         np.asarray(j_sensor_angles(jnp.asarray(psi), 64)), atol=1e-6, rtol=0)
 
 
-def _pallas(pos, oxy, orr, mask, bd, R, fh, defer, fold, aa):
+def _pallas(pos, oxy, orr, mask, bd, R, fh, defer, fold, aa, n_acc=1):
     return np.asarray(raycast_pallas_batched(
         *_j(pos, oxy, orr, mask), R, MAXR, boundary_distance=jnp.asarray(bd),
-        first_hit=fh, interpret=True, n_acc=1, angle_addition=aa,
+        first_hit=fh, interpret=True, n_acc=n_acc, angle_addition=aa,
         fold_lateral=fold, defer_sqrt=defer,
     ))
 
@@ -154,12 +158,99 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     assert counter.launches == before  # no kernel ran
 
 
+@pytest.mark.parametrize("first_hit", [True, False])
+@pytest.mark.parametrize("n_acc", [2, 3, 4])
+def test_plain_version_n_acc_matches_pallas_kernel(first_hit, n_acc):
+    """The accumulator split on the scene and at the tolerance (atol=1e-4,
+    the rounding of cos/sin) of test_plain_version_matches_pallas_kernel.
+    No two keys of this scene tie, so the split equals the single chain bit
+    for bit."""
+    B, R = 7, 32
+    pos, oxy, orr, mask = _scene(B, 12, 0)
+    bd = _boundary(pos, oxy, orr)
+    want = _pallas(pos, oxy, orr, mask, bd, R, first_hit, True, True, True, n_acc=n_acc)
+    args = (*_t(pos, oxy, orr, mask), R, MAXR)
+    got = raycast_cuda_reference(*args, boundary_distance=_t(bd)[0], first_hit=first_hit,
+                                 n_acc=n_acc)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    single = raycast_cuda_reference(*args, boundary_distance=_t(bd)[0], first_hit=first_hit,
+                                    n_acc=1)
+    assert torch.equal(got, single)
+
+
+def _tie_scene():
+    """One obstacle centre 10 m ahead of ray 8 (of 16) in slots 1 and 2, with
+    radii 0.5 and 1.0 and the same key: ray 8 reads 9.5 where slot 1 wins the
+    tie and 9.0 where slot 2 does. Slots 0 and 3 lie behind the boat."""
+    pos = np.zeros((2, 3), np.float32)
+    oxy = np.array([[-50.0, -50.0], [10.0, 0.0], [10.0, 0.0], [-60.0, 40.0]], np.float32)
+    oxy = np.broadcast_to(oxy, (2, 4, 2)).copy()
+    orr = np.broadcast_to(np.array([0.3, 0.5, 1.0, 0.3], np.float32), (2, 4)).copy()
+    mask = np.ones((2, 4), bool)
+    key = np.broadcast_to(np.array([5.0, 9.25, 9.25, 70.0], np.float32), (2, 4)).copy()
+    return pos, oxy, orr, mask, key
+
+
+# the slot order n_acc gives: 0,1,2,3 / 0,2,1,3 / 0,3,1,2 / 0,1,2,3
+@pytest.mark.parametrize("n_acc,ray8", [(1, 9.5), (2, 9.0), (3, 9.5), (4, 9.5)])
+def test_n_acc_tie_order_matches_pallas_kernel(n_acc, ray8):
+    pos, oxy, orr, mask, key = _tie_scene()
+    got = raycast_cuda_reference(*_t(pos, oxy, orr, mask), 16, MAXR,
+                                 boundary_distance=_t(key)[0], n_acc=n_acc).numpy()
+    want = _pallas(pos, oxy, orr, mask, key, 16, True, True, True, True, n_acc=n_acc)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got[:, 8], ray8, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("env,want", [
+    ({}, (1, True)),
+    ({"USV_RAYCAST_NACC": "0", "USV_RAYCAST_DEFER_SQRT": "0"}, (1, False)),
+    ({"USV_RAYCAST_NACC": "2", "USV_RAYCAST_DEFER_SQRT": " Off "}, (2, False)),
+    ({"USV_RAYCAST_NACC": " 3 ", "USV_RAYCAST_DEFER_SQRT": "yes"}, (3, True)),
+])
+def test_env_var_defaults_are_read_at_the_call(monkeypatch, env, want):
+    for name in ("USV_RAYCAST_NACC", "USV_RAYCAST_DEFER_SQRT"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert resolve_options(None, None, 12) == want
+    assert resolve_options(4, True, 12) == (4, True)  # an argument outranks the variable
+    # the wrapper and the plain version take the default: the tie scene shows n_acc
+    pos, oxy, orr, mask, key = _tie_scene()
+    args = (*_t(pos, oxy, orr, mask), 16, MAXR)
+    ray8 = 9.0 if want[0] == 2 else 9.5
+    for fn in (raycast_cuda, raycast_cuda_reference):
+        got = fn(*args, boundary_distance=_t(key)[0])
+        np.testing.assert_allclose(got[:, 8].numpy(), ray8, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("USV_RAYCAST_NACC", "two"), ("USV_RAYCAST_NACC", "1.5"),
+    ("USV_RAYCAST_DEFER_SQRT", "2"), ("USV_RAYCAST_DEFER_SQRT", "maybe"),
+])
+def test_malformed_env_var_raises_at_the_call(monkeypatch, name, value):
+    monkeypatch.setenv(name, value)
+    pos, oxy, orr, mask = _t(*_scene(4, 6, 0))
+    for fn in (raycast_cuda, raycast_cuda_reference):
+        with pytest.raises(ValueError, match=name):
+            fn(pos, oxy, orr, mask, 16, MAXR)
+    # an explicit argument never reads the variable
+    explicit = {"n_acc": 1} if name == "USV_RAYCAST_NACC" else {"defer_sqrt": True}
+    raycast_cuda(pos, oxy, orr, mask, 16, MAXR, **explicit)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     pos, oxy, orr, mask = _t(*_scene(4, 6, 0))
     with pytest.raises(ValueError, match="n_acc"):
-        raycast_cuda(pos, oxy, orr, mask, 16, MAXR, n_acc=2)
+        raycast_cuda(pos, oxy, orr, mask, 16, MAXR, n_acc=5)
     with pytest.raises(ValueError, match="n_acc"):
-        raycast_cuda_reference(pos, oxy, orr, mask, 16, MAXR, n_acc=4)
+        raycast_cuda_reference(pos, oxy, orr, mask, 16, MAXR, n_acc=5)
+    # clamped to [1, K] as the TPU launcher clamps it
+    single = raycast_cuda(pos, oxy, orr, mask, 16, MAXR, n_acc=1)
+    assert torch.equal(raycast_cuda(pos, oxy, orr, mask, 16, MAXR, n_acc=0), single)
+    three = [t[:, :3].contiguous() for t in (oxy, orr, mask)]
+    assert torch.equal(raycast_cuda(pos, *three, 16, MAXR, n_acc=7),
+                       raycast_cuda(pos, *three, 16, MAXR, n_acc=3))
     with pytest.raises(TypeError, match="dtype"):
         raycast_cuda(pos.double(), oxy, orr, mask, 16, MAXR)
     with pytest.raises(ValueError, match="shape"):

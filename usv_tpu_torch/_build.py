@@ -5,7 +5,9 @@ interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The library lands in ``build/kernels/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
-``nvcc`` per missing source, all together, and waits for them.
+``nvcc`` per missing source, all together, and waits for them. ``extra_flags``
+(``-D`` macros) name a variant of a kernel, built and loaded beside the
+default one: the measuring tools use it.
 
 A machine without ``nvcc``, or a failed build, raises: there is no fallback.
 """
@@ -15,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -35,7 +38,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -51,13 +54,18 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra_flags: Iterable[str] = ()) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join((*NVCC_FLAGS, *extra_flags))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, str]:
+def build(
+    names: Optional[Iterable[str]] = None,
+    force: bool = False,
+    extra_flags: Iterable[str] = (),
+) -> Dict[str, str]:
     """Compile every named kernel (all by default) whose library is missing,
     or every one with ``force``, all in parallel.
 
@@ -66,7 +74,8 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     its compiler output.
     """
     names = list(SOURCES if names is None else names)
-    todo = [n for n in names if force or not library_path(n).exists()]
+    extra_flags = tuple(extra_flags)
+    todo = [n for n in names if force or not library_path(n, extra_flags).exists()]
     if not todo:
         return {}
     nvcc = find_nvcc()
@@ -75,7 +84,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     for n in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[n])]
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", tmp, str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -87,18 +96,28 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
             errors.append(f"nvcc failed for {SOURCES[n]} (rc {proc.returncode}):\n{out}")
             continue
         # atomic: concurrent processes may build the same library
-        os.replace(tmp, library_path(n))
+        os.replace(tmp, library_path(n, extra_flags))
         logs[n] = out
     if errors:
         raise RuntimeError("\n".join(errors))
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
+def ptxas_report(log: str):
+    """``[(entry point, registers, spill store bytes, spill load bytes)]`` of
+    each kernel instance in a build's ``-Xptxas -v`` output."""
+    pattern = (r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
+               r"(\d+) bytes spill loads.*?Used (\d+) registers")
+    return [(entry, int(regs), int(stores), int(loads))
+            for entry, stores, loads, regs in re.findall(pattern, log, flags=re.DOTALL)]
+
+
+def load(name: str, extra_flags: Iterable[str] = ()) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
+    key = (name, tuple(extra_flags))
+    lib = _loaded.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build([name], extra_flags=key[1])
+        lib = ctypes.CDLL(str(library_path(*key)))
+        _loaded[key] = lib
     return lib

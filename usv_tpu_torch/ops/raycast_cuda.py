@@ -5,22 +5,42 @@
 stream. On CPU tensors it returns :func:`raycast_cuda_reference` instead, and
 only then: on a CUDA tensor it launches the kernel or raises.
 
+The kernel is bound by instruction issue, not by bytes (its inputs are 556
+bytes per env at the main-path shapes) and not by latency: every one of its
+~14 float32 operations per ray-obstacle pair is unfused, to round as the
+plain version does. Its design spends on issue slots, shared-memory
+instructions and registers. While a warp stages the envs it computes into
+shared memory it drops the masked slots (a ballot and a popcount prefix keep
+the order), packs each kept slot into one 16-byte ``float4``, computes the
+heading's cos/sin once per env, and gives each group of neighbouring rays
+its own list of the slots that lie inside the group's cone: a pair outside
+is a miss in the plain version too, so no output bit changes. Then every
+thread carries four rays (one where the launch is small) through a loop over
+its lists only. Lanes are dealt over rays x envs, so narrow sensors (R=16,
+32) share a warp between envs instead of idling lanes. There is no use here
+for tensor cores (the product per pair has depth 2, and TF32 would break the
+tangency bounds) or for TMA (nothing to hide behind a 1.3 us bytes bound).
+The note at the top of ``csrc/raycast.cu`` has the details, ``PERF.md`` the
+times.
+
 :func:`raycast_cuda_reference` repeats the kernel's arithmetic — the
 lateral fold, the squared-space hit test and its clamp, the strict
-first-slot-wins order, every option — as masked ``(B, R, K)`` tensor ops. The
-tests and ``chip_smoke.py`` hold the kernel against it; the main path never
-calls it on the card. It runs in the inputs' dtype, so in float64 it serves
-as the tangency oracle.
+first-slot-wins order within and across the ``n_acc`` accumulators, every
+option — as masked ``(B, R, K)`` tensor ops. The tests and ``chip_smoke.py``
+hold the kernel against it; the main path never calls it on the card. It
+runs in the inputs' dtype, so in float64 it serves as the tangency oracle.
 
-Not ported yet: the TPU kernel's ``n_acc`` accumulator split (an ILP device
-for the TPU's loop-carried chain; only ``n_acc`` of 1 or None is accepted)
-and the ``USV_RAYCAST_*`` environment-variable defaults (not read).
+Left as ``None``, ``defer_sqrt`` and ``n_acc`` take their defaults from the
+environment variables ``USV_RAYCAST_DEFER_SQRT`` (default on) and
+``USV_RAYCAST_NACC`` (default 1), read at the call as the JAX package reads
+them. ``n_acc`` is clamped to ``[1, K]``; the kernel has 1 to 4 accumulators.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import os
 from functools import lru_cache
 
 import torch
@@ -44,30 +64,97 @@ class LaunchCounter:
 counter = LaunchCounter()
 
 
-def _check_n_acc(n_acc):
-    if n_acc not in (None, 1):
+MAX_N_ACC = 4  # the kernel's instances (kMaxAcc in csrc/raycast.cu)
+
+
+def _env_bool(name, default):
+    v = os.environ.get(name, "").strip().lower()
+    if not v:
+        return default
+    if v in ("1", "true", "on", "yes"):
+        return True
+    if v in ("0", "false", "off", "no"):
+        return False
+    raise ValueError(f"{name}={v!r}: expected a boolean (1/0/true/false)")
+
+
+def _env_int(name, default):
+    v = os.environ.get(name, "").strip()
+    if not v:
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{name}={v!r}: expected an integer") from None
+
+
+def resolve_options(n_acc, defer_sqrt, K):
+    """``(n_acc, defer_sqrt)`` with ``None`` replaced by the environment's
+    default, and ``n_acc`` clamped to ``[1, K]`` as the TPU launcher clamps it.
+    More accumulators than the kernel has instances of raise."""
+    if defer_sqrt is None:
+        defer_sqrt = _env_bool("USV_RAYCAST_DEFER_SQRT", True)
+    if n_acc is None:
+        n_acc = _env_int("USV_RAYCAST_NACC", 1)
+    n_acc = max(1, min(int(n_acc), K))
+    if n_acc > MAX_N_ACC:
         raise ValueError(
-            f"n_acc={n_acc!r}: the accumulator split is not ported; use 1 or None"
+            f"n_acc={n_acc}: the kernel has 1 to {MAX_N_ACC} accumulators"
         )
+    return n_acc, bool(defer_sqrt)
 
 
-@lru_cache(maxsize=None)
-def _library():
-    """The kernel's library, built on first use, with its C signatures."""
-    lib = _build.load("raycast")
+def bind(lib):
+    """Declare the C signatures of a built ray-cast library."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.usv_raycast_launch.argtypes = [p] * 7 + [i, i, i, f, f, i, i, i, i, p]
+    lib.usv_raycast_launch.argtypes = [p] * 7 + [i, i, i, f, f, i, i, i, i, i, p]
     lib.usv_raycast_launch.restype = ctypes.c_int
-    lib.usv_raycast_block_dims.argtypes = [i, ctypes.POINTER(i), ctypes.POINTER(i)]
-    lib.usv_raycast_block_dims.restype = None
+    lib.usv_raycast_smem_bytes.argtypes = [i, i, i]
+    lib.usv_raycast_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
 @lru_cache(maxsize=None)
-def _envs_per_block(sensor_count: int) -> int:
-    rays, envs = ctypes.c_int(), ctypes.c_int()
-    _library().usv_raycast_block_dims(sensor_count, ctypes.byref(rays), ctypes.byref(envs))
-    return envs.value
+def _library():
+    """The kernel's library, built on first use."""
+    return bind(_build.load("raycast"))
+
+
+@lru_cache(maxsize=None)
+def _smem_bytes(lib, B: int, R: int, K: int) -> int:
+    """Dynamic shared memory a block of this launch takes."""
+    return lib.usv_raycast_smem_bytes(B, R, K)
+
+
+def launch(
+    lib, position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
+    sensor_span, boundary_distance, first_hit, n_acc, angle_addition,
+    fold_lateral, defer_sqrt,
+):
+    """Launch library ``lib``'s kernel on checked CUDA tensors and resolved
+    options (the arguments of :func:`raycast_cuda_reference`) -> (B, R)."""
+    B, K = obs_r.shape
+    if 2 * B * max(K, sensor_count) >= 2**31:
+        raise ValueError(f"raycast_cuda: B={B} envs exceed the kernel's 32-bit indices")
+    # a block's rows of shared memory: one float4 per obstacle slot per list
+    if _smem_bytes(lib, B, sensor_count, K) > _SMEM_LIMIT:
+        raise ValueError(f"raycast_cuda: K={K} obstacles exceed the kernel's shared memory")
+    ray_cs = ray_table(sensor_count, float(sensor_span), torch.float32, position.device)
+    out = torch.empty((B, sensor_count), dtype=torch.float32, device=position.device)
+    with torch.cuda.device(position.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.usv_raycast_launch(
+            position.data_ptr(), obs_xy.data_ptr(), obs_r.data_ptr(),
+            obs_mask.view(torch.uint8).data_ptr(), boundary_distance.data_ptr(),
+            ray_cs.data_ptr(), out.data_ptr(),
+            B, sensor_count, K, float(sensor_max_range),
+            float(sensor_span / sensor_count),
+            int(first_hit), int(defer_sqrt), int(fold_lateral),
+            int(angle_addition), int(n_acc), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
+    return out
 
 
 def _check_inputs(**tensors):
@@ -110,46 +197,27 @@ def raycast_cuda(
     n_acc=None,
     angle_addition: bool = True,
     fold_lateral: bool = True,
-    defer_sqrt: bool = True,
+    defer_sqrt=None,
 ):
     """Batched ray-cast -> (B, R) float32: the TPU kernel's function and options.
 
     ``boundary_distance`` is the first-hit ordering key; it defaults to
     ``hypot(obs - boat) - r``.
     """
-    _check_n_acc(n_acc)
     B, K = _check_inputs(position=position, obs_xy=obs_xy, obs_r=obs_r, obs_mask=obs_mask)
+    n_acc, defer_sqrt = resolve_options(n_acc, defer_sqrt, K)
     if boundary_distance is None:
         n = obs_xy - position[:, None, :2]
         boundary_distance = torch.hypot(n[..., 0], n[..., 1]) - obs_r
     _check_inputs(position=position, obs_r=obs_r, boundary_distance=boundary_distance)
-    if position.device.type == "cpu":
-        return raycast_cuda_reference(
-            position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
+    args = (position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
             sensor_span, boundary_distance, first_hit, n_acc, angle_addition,
-            fold_lateral, defer_sqrt,
-        )
+            fold_lateral, defer_sqrt)
+    if position.device.type == "cpu":
+        return raycast_cuda_reference(*args)
     if position.device.type != "cuda":
         raise ValueError(f"raycast_cuda: unsupported device {position.device}")
-
-    # shared memory: four float32 scalars per obstacle slot per env of a block
-    if _envs_per_block(sensor_count) * 4 * K * 4 > _SMEM_LIMIT:
-        raise ValueError(f"raycast_cuda: K={K} obstacles exceed the kernel's shared memory")
-    ray_cs = ray_table(sensor_count, float(sensor_span), torch.float32, position.device)
-    out = torch.empty((B, sensor_count), dtype=torch.float32, device=position.device)
-    with torch.cuda.device(position.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _library().usv_raycast_launch(
-            position.data_ptr(), obs_xy.data_ptr(), obs_r.data_ptr(),
-            obs_mask.view(torch.uint8).data_ptr(), boundary_distance.data_ptr(),
-            ray_cs.data_ptr(), out.data_ptr(),
-            B, sensor_count, K, float(sensor_max_range),
-            float(sensor_span / sensor_count),
-            int(first_hit), int(defer_sqrt), int(fold_lateral),
-            int(angle_addition), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
+    out = launch(_library(), *args)
     counter.launches += 1
     return out
 
@@ -167,11 +235,21 @@ def raycast_cuda_reference(
     n_acc=None,
     angle_addition: bool = True,
     fold_lateral: bool = True,
-    defer_sqrt: bool = True,
+    defer_sqrt=None,
 ):
     """The kernel's arithmetic as masked (B, R, K) tensor ops, in the inputs'
     dtype. Same arguments and result as :func:`raycast_cuda`."""
-    _check_n_acc(n_acc)
+    K = obs_r.shape[-1]
+    n_acc, defer_sqrt = resolve_options(n_acc, defer_sqrt, K)
+    if first_hit and n_acc > 1:
+        # accumulator a takes slots a, a + n_acc, ... and the accumulators
+        # merge in order with a strict <: the first least key in this order
+        # of the slots wins
+        order = torch.tensor([k for a in range(n_acc) for k in range(a, K, n_acc)],
+                             device=position.device)
+        obs_xy, obs_r, obs_mask = obs_xy[:, order], obs_r[:, order], obs_mask[:, order]
+        if boundary_distance is not None:
+            boundary_distance = boundary_distance[:, order]
     dtype, device = position.dtype, position.device
     max_range = float(sensor_max_range)
     resolution = sensor_span / sensor_count
