@@ -22,8 +22,10 @@ PyTorch version on the card. Phases, each of which exits non-zero on failure:
    steps, with the kernel launched exactly once per step;
 5. one step's kernels and device time (torch.profiler), for the idle share;
 6. the kernel's device time (CUDA events around a replayed CUDA graph)
-   beside its plain version's, its bound and the issue ceiling, at the three
-   shapes the system launches, and with ``n_acc`` 1, 2 and 4 at the first.
+   beside its plain version's and its bound (the bytes, or the operations
+   on the pairs this data needs, counted on the card), at the three shapes
+   the system launches, and with ``n_acc`` 1, 2 and 4 and with no slot valid
+   at the first.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -52,11 +54,15 @@ ATOL = 1e-4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # f32 operations per ray-obstacle pair of the default kernel path
-# (csrc/raycast.cu: xk 3, delta 2, t 2, t*t 1, three compares, three selects)
+# (csrc/raycast.cu: xk 3, delta 2, t 2, t*t 1, three compares, three selects),
+# and per valid slot to look at it once (nx, ny, q = r*r - (nx*nx + ny*ny), the
+# mask test). The function needs the first only on the pairs where the ray
+# meets the obstacle's disc: every other pair is a miss whatever its numbers.
 OPS_PER_PAIR = 14
+OPS_PER_SLOT = 8
 # The data sheet's float32 peak counts a fused multiply-add as two. The
 # kernel's operations are unfused (-fmad=false), one issue slot each: a kernel
-# that evaluates every valid pair cannot go under this ceiling, twice the bound.
+# that evaluates every valid pair cannot go under this ceiling.
 PEAK_F32_SLOTS_PER_S = PEAK_F32_PER_S / 2
 
 
@@ -106,6 +112,23 @@ def compare_with_plain(label, args, max_range, **kw):
     err = float((got - want).abs().max())
     check(err <= ATOL, f"{label} {kw}: max |kernel - plain| = {err}")
     return err, got
+
+
+def needed_pairs(position, obs_xy, obs_r, obs_mask, sensor_count, sensor_span):
+    """Ray-obstacle pairs this data needs evaluated: the obstacle is valid and
+    the ray's line meets its disc ahead of the boat (the tangency-safe test of
+    the plain version). Counted on the card."""
+    from usv_tpu_torch.ops.raycast import ray_table
+
+    ray_c, ray_s = ray_table(sensor_count, float(sensor_span), torch.float32, position.device)
+    cp, sp = torch.cos(position[:, 2:3]), torch.sin(position[:, 2:3])
+    c = (cp * ray_c - sp * ray_s)[:, :, None]
+    s = (sp * ray_c + cp * ray_s)[:, :, None]
+    n = (obs_xy - position[:, None, :2])[:, None]
+    xk = c * n[..., 0] + s * n[..., 1]
+    yk = s * n[..., 0] - c * n[..., 1]
+    r = obs_r[:, None, :]
+    return int(((xk >= 0) & (yk * yk <= r * r) & obs_mask[:, None, :]).sum())
 
 
 def check_kernel(device):
@@ -315,10 +338,12 @@ def main():
               f"spill loads up to {max(r[3] for r in report)} B")
         # <first hit, defer, fold, angle addition, n_acc 1> with 4 rays and 1 ray a thread
         for rays in (4, 1):
-            for entry, n_regs, stores, loads in report:
-                if f"Lb1ELb1ELb1ELb1ELi1ELi{rays}E" in entry:
-                    print(f"    default mode, {rays} ray(s) a thread: {n_regs} registers, "
-                          f"{stores} B spill stores, {loads} B spill loads")
+            found = [r for r in report if f"Lb1ELb1ELb1ELb1ELi1ELi{rays}E" in r[0]]
+            check(len(found) == 1, f"{name}: {len(found)} default-mode instances with {rays} ray(s) "
+                                   "a thread in the build output")
+            _, n_regs, stores, loads = found[0]
+            print(f"    default mode, {rays} ray(s) a thread: {n_regs} registers, "
+                  f"{stores} B spill stores, {loads} B spill loads")
 
     phase("kernel vs plain version")
     max_err = check_kernel(device)
@@ -367,19 +392,25 @@ def main():
         row["plain_ms"] = time_device(lambda: rc.raycast_cuda_reference(*args, boundary_distance=bd))
         in_bytes = B * (3 * 4 + K * 2 * 4 + K * 4 + K * 1 + K * 4)
         out_bytes = B * R * 4
-        pairs = R * int(mask.sum())  # the slots this data needs
+        slots = int(mask.sum())
+        pairs = R * slots
+        needed = needed_pairs(*args[:4], R, args[6])  # what this data needs
         bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
-        ops_ms = OPS_PER_PAIR * pairs / PEAK_F32_PER_S * 1e3
+        ops_ms = (OPS_PER_PAIR * needed + OPS_PER_SLOT * slots) / PEAK_F32_PER_S * 1e3
         row.update(bound_ms=max(bytes_ms, ops_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                   bytes_ms=bytes_ms, ops_ms=ops_ms, valid_pairs=pairs,
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, needed_pairs=needed, valid_slots=slots,
+                   valid_pairs=pairs,
+                   ops_every_valid_pair_ms=OPS_PER_PAIR * pairs / PEAK_F32_PER_S * 1e3,
                    issue_ceiling_ms=OPS_PER_PAIR * pairs / PEAK_F32_SLOTS_PER_S * 1e3)
         extra = "".join(f", n_acc {n} {row[f'ms_n_acc{n}']:.5f} ms" for n in n_accs if n > 1)
         print(f"  {label} B={B} R={R} K={K}: kernel {row['ms']:.5f} ms{extra}, "
               f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.5f} ms by {row['bound_by']} "
               f"(bytes {bytes_ms:.5f} ms for {in_bytes + out_bytes} B; operations {ops_ms:.5f} ms "
-              f"for {pairs} valid pairs x {OPS_PER_PAIR}), issue ceiling for unfused operations "
-              f"{row['issue_ceiling_ms']:.5f} ms", flush=True)
+              f"for {needed} pairs where the ray meets the disc x {OPS_PER_PAIR} and {slots} valid "
+              f"slots x {OPS_PER_SLOT}). {OPS_PER_PAIR} operations on every one of the {pairs} "
+              f"valid pairs: {row['ops_every_valid_pair_ms']:.5f} ms at the peak, "
+              f"{row['issue_ceiling_ms']:.5f} ms in unfused issue slots", flush=True)
         return row
 
     cfg = handle.cfg
@@ -390,7 +421,10 @@ def main():
     call_ms = time_cuda(lambda: rc.raycast_cuda(*args, boundary_distance=bd), 200)
     main_row = time_shape("main path, the rollout's last state,", args, bd, state.obs_mask,
                           n_accs=(1, 2, 4))
-    print(f"  an eager call from Python {call_ms:.5f} ms")
+    # what a launch costs before its loop runs: the same inputs with no slot valid
+    no_slot = (*args[:3], torch.zeros_like(state.obs_mask), *args[4:])
+    no_slot_ms = time_device(lambda: rc.raycast_cuda(*no_slot, boundary_distance=bd))
+    print(f"  with no slot valid {no_slot_ms:.5f} ms; an eager call from Python {call_ms:.5f} ms")
     other_rows = []
     for label, R, K in (("CA env's shape, reset state,", 16, 16), ("curved env's shape, reset state,", 32, 16)):
         other = SimpleEnvConfig(sensor_count=R, obstacle_cap=K)
@@ -413,7 +447,10 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": main_row["bound_by"],
         "library_ms": None,
+        "needed_pairs": main_row["needed_pairs"],
+        "ops_every_valid_pair_ms": main_row["ops_every_valid_pair_ms"],
         "issue_ceiling_ms": main_row["issue_ceiling_ms"],
+        "no_slot_valid_ms": no_slot_ms,
         "ms_n_acc2": main_row["ms_n_acc2"],
         "ms_n_acc4": main_row["ms_n_acc4"],
         "eager_call_ms": call_ms,

@@ -139,6 +139,54 @@ def test_kernel_cone_culling_keeps_every_hit(cuda, case, R):
         assert (want < MAXR).any()  # the case does meet obstacles
 
 
+@pytest.mark.parametrize("R", [128, 16])
+@pytest.mark.parametrize("case", ["poses_1e4", "poses_1e5", "heading_3e3", "heading_1e6"])
+def test_kernel_cone_culling_far_poses_and_headings(cuda, case, R):
+    """Finger-thin obstacles (every hit a graze) seen from poses 10-100 km out
+    and at headings of many turns, where float32's steps are coarse: the
+    culling margins scale with the distance to the obstacle, not with the
+    pose, and a heading too coarse to cull by culls nothing. Bit for bit the
+    plain version, lateral fold on and off."""
+    B, K = 1100, 32
+    pos, oxy, orr, mask = _scene(B, K, 23, cuda)
+    rel = (oxy - pos[:, None, :2]) * 3.0
+    if case.startswith("poses"):
+        pos[:, :2] += float(case[6:]) * torch.tensor([1.0, -0.7], device=cuda)
+    else:
+        pos[:, 2] += float(case[8:])
+    oxy = (pos[:, None, :2] + rel).contiguous()
+    n = oxy - pos[:, None, :2]
+    # thin against the position's own step, so that rays still graze
+    step = torch.finfo(torch.float32).eps * pos[:, None, :2].abs().amax(-1)
+    orr = torch.clamp_min(orr * 0.02, 2.0 * step)
+    mask = torch.ones_like(mask)
+    assert (torch.hypot(n[..., 0], n[..., 1]) > 4 * orr).float().mean() > 0.9
+    hits = 0
+    for fh, defer, fold, aa in itertools.product([True, False], repeat=4):
+        kw = dict(first_hit=fh, defer_sqrt=defer, fold_lateral=fold, angle_addition=aa)
+        got = raycast_cuda(pos, oxy, orr, mask, R, MAXR, **kw)
+        want = raycast_cuda_reference(pos, oxy, orr, mask, R, MAXR, **kw)
+        assert torch.equal(got, want), (case, kw)
+        hits += int((want < MAXR).sum())
+    assert hits > 0
+
+
+@pytest.mark.parametrize("R", [128, 16, 200])
+@pytest.mark.parametrize("span", [math.pi / 2, 3.0, 2 * math.pi, -4 * math.pi / 3])
+def test_kernel_cone_culling_other_sensor_spans(cuda, span, R):
+    """The cones follow the span the caller gives (narrow, wide, a full turn,
+    reversed), on ordinary and on finger-thin obstacles."""
+    B, K = 1100, 32
+    pos, oxy, orr, mask = _scene(B, K, 29, cuda)
+    for radii in (orr, orr * 0.02):
+        for fh, defer, fold, aa in itertools.product([True, False], repeat=4):
+            kw = dict(first_hit=fh, defer_sqrt=defer, fold_lateral=fold, angle_addition=aa)
+            got = raycast_cuda(pos, oxy, radii, mask, R, MAXR, span, **kw)
+            want = raycast_cuda_reference(pos, oxy, radii, mask, R, MAXR, span, **kw)
+            assert torch.equal(got, want), (span, kw)
+        assert (want < MAXR).any()
+
+
 def _duplicated_keys(B, K, seed, device):
     """Every obstacle twice, in slots k and K - 1 - k, with the same key and
     another radius: which slot wins the tie decides the distance."""

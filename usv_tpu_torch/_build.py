@@ -5,9 +5,7 @@ interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The library lands in ``build/kernels/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
-``nvcc`` per missing source, all together, and waits for them. ``extra_flags``
-(``-D`` macros) name a variant of a kernel, built and loaded beside the
-default one: the measuring tools use it.
+``nvcc`` per missing source, all together, and waits for them.
 
 A machine without ``nvcc``, or a failed build, raises: there is no fallback.
 """
@@ -22,7 +20,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Dict, Iterable, Optional
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -38,7 +36,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -54,18 +52,13 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str, extra_flags: Iterable[str] = ()) -> Path:
+def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    flags = " ".join((*NVCC_FLAGS, *extra_flags))
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(
-    names: Optional[Iterable[str]] = None,
-    force: bool = False,
-    extra_flags: Iterable[str] = (),
-) -> Dict[str, str]:
+def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, str]:
     """Compile every named kernel (all by default) whose library is missing,
     or every one with ``force``, all in parallel.
 
@@ -74,8 +67,7 @@ def build(
     its compiler output.
     """
     names = list(SOURCES if names is None else names)
-    extra_flags = tuple(extra_flags)
-    todo = [n for n in names if force or not library_path(n, extra_flags).exists()]
+    todo = [n for n in names if force or not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = find_nvcc()
@@ -84,7 +76,7 @@ def build(
     for n in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", tmp, str(CSRC / SOURCES[n])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -96,7 +88,7 @@ def build(
             errors.append(f"nvcc failed for {SOURCES[n]} (rc {proc.returncode}):\n{out}")
             continue
         # atomic: concurrent processes may build the same library
-        os.replace(tmp, library_path(n, extra_flags))
+        os.replace(tmp, library_path(n))
         logs[n] = out
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -112,12 +104,11 @@ def ptxas_report(log: str):
             for entry, stores, loads, regs in re.findall(pattern, log, flags=re.DOTALL)]
 
 
-def load(name: str, extra_flags: Iterable[str] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
-    key = (name, tuple(extra_flags))
-    lib = _loaded.get(key)
+    lib = _loaded.get(name)
     if lib is None:
-        build([name], extra_flags=key[1])
-        lib = ctypes.CDLL(str(library_path(*key)))
-        _loaded[key] = lib
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _loaded[name] = lib
     return lib

@@ -33,20 +33,23 @@
 //
 // What bounds it. At the main-path shapes (B=4096, R=128, K=32, 15-29 slots
 // valid) the inputs are 556 bytes per env and the output 512: 4.4 MB, 1.3 us
-// at 3.35 TB/s. The default path does 14 float32 operations on each valid
-// ray-obstacle pair (xk 3, delta 2, t 2, t*t 1, three compares, three
-// selects): ~2.4 us at the 67 TFLOP/s of the data sheet. That peak counts a
-// fused multiply-add as two; this kernel's operations are unfused on purpose
-// (see Numerics), so each takes a whole issue slot, and the compares, selects
-// and max run at half rate besides. A kernel that evaluates every valid pair
-// cannot go under twice the bound. The scarce things are issue slots,
-// shared-memory instructions and registers, and the design spends on those:
+// at 3.35 TB/s, and that is the bound: a ray can hit only the few obstacles
+// whose disc covers its direction, and the 14 float32 operations of the
+// default path (xk 3, delta 2, t 2, t*t 1, three compares, three selects) on
+// those pairs alone, plus one look at each valid slot, take less than the
+// bytes. Done on every valid ray-obstacle pair they would take ~2.4 us at
+// the 67 TFLOP/s of the data sheet, and twice that in issue slots: the peak
+// counts a fused multiply-add as two, and this kernel's operations are
+// unfused on purpose (see Numerics), so each takes a whole slot, and the
+// compares, selects and max run at half rate besides. So the work per pair
+// is what to cut first. The scarce things are issue slots, shared-memory
+// instructions and registers, and the design spends on those:
 //   * Cone culling. A ray can hit only an obstacle whose direction lies
 //     within asin(r/d) of its own. The rays that register j of an env's
 //     lanes hold are neighbours, a cone about the heading, so the staging
 //     pass gives each register its own list of the slots whose direction
-//     lies within that cone's half width plus asin(r/d), with margins that
-//     dwarf float32's rounding. A culled pair is a miss in the plain version
+//     lies within that cone's half width plus asin(r/d), with margins
+//     several times float32's rounding. A culled pair is a miss in the plain version
 //     too, so no output bit changes; at the main-path shapes a list keeps ~4
 //     of ~22 valid slots. Lists are padded to one length with a slot that
 //     can never win (key +inf, delta < 0), so the loop has no branch.
@@ -90,60 +93,41 @@
 // contraction off every op rounds as the plain version's separate tensor ops
 // do. sqrtf/cosf/sinf are the IEEE/full-precision library forms.
 //
-// The USV_RC_* macros below exist so that tools/raycast_variants.py can build
-// and time each design part on and off; their defaults are the measured best
-// (PERF.md).
+// PERF.md has the time each of these parts gave on the card.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#ifndef USV_RC_THREADS  // threads per block, a power of two >= 32
-#define USV_RC_THREADS 128
-#endif
-#ifndef USV_RC_RAYS  // rays per thread, at most 8; 0: 1 or 4, by the launch's size
-#define USV_RC_RAYS 0
-#endif
-#ifndef USV_RC_CULL  // 0: every ray group loops over every kept slot
-#define USV_RC_CULL 1
-#endif
-#ifndef USV_RC_COMPACT  // 0: stage every slot, masked ones as one that never wins
-#define USV_RC_COMPACT 1
-#endif
-#ifndef USV_RC_PACKED  // 0: four float planes per list, four 32-bit loads per slot
-#define USV_RC_PACKED 1
-#endif
-#ifndef USV_RC_CARRY_INDEX  // 0: carry (key, xk, delta) through the loop
-#define USV_RC_CARRY_INDEX 1
-#endif
-#ifndef USV_RC_UNROLL  // unroll factor of the loop over kept slots
-#define USV_RC_UNROLL 2
-#endif
-
 namespace {
 
-constexpr int kThreads = USV_RC_THREADS;
+constexpr int kThreads = 128;  // threads per block, a power of two >= 32
 // half the threads one H100 holds at once (132 SMs of 2048)
 constexpr long long kLatencyBoundRays = 132LL * 2048 / 2;
 // rays per thread of a launch too large for one ray per thread
-constexpr int kManyRays = USV_RC_RAYS > 1 ? USV_RC_RAYS : 4;
-constexpr int kMaxRays = 8;
+constexpr int kManyRays = 4;
 // warps an SM should hold at once: the main path's grid is 7.8 of its blocks
 // an SM, so 64 registers a thread keep it to one wave (asked of the
 // single-accumulator instances only; the others would spill)
 constexpr int kResidentWarps = 32;
 constexpr int kMaxAcc = 4;
-constexpr int kUnroll = USV_RC_UNROLL;
-constexpr bool kCull = USV_RC_CULL;
+constexpr int kUnroll = 2;  // of the loop over a list
 // -2*pi/3 rounded to float, as the TPU kernel's weak-typed constant is
 constexpr float kFirstRay = -2.0943951023931953f;
 // Culling margins. A pair that float32 calls a hit has delta >= 0 up to the
-// rounding of q + xk*xk, a few ulp of d^2: the true sine of the angle between
-// ray and obstacle is then below r/d + 5e-4. kSineMargin covers that four
-// times over, and kAngleMargin the rounding of the ray angles (1e-6 rad).
-constexpr float kSineMargin = 2e-3f;
+// error of q + xk*xk. c and s are off by ~3e-7 and xk's own roundings add
+// ~2e-7 d, so xk*xk is off by ~1e-6 d^2; q and the sum add ~3e-7 d^2. With
+// delta = r^2 - (d sin)^2 off by 1.4e-6 d^2, the true sine of the angle
+// between ray and obstacle is below sqrt((r/d)^2 + 1.4e-6) <= r/d + 1.2e-3.
+// kSineMargin covers that three times over. The errors scale with d, the
+// distance from boat to obstacle, not with the pose: nx and ny are single
+// subtractions. kAngleMargin covers the rounding of the ray angles: 1e-6 rad
+// with the table, an ulp of the heading without it, which is why a heading
+// beyond kMaxCullHeading (ulp 6e-5 rad) culls nothing.
+constexpr float kSineMargin = 4e-3f;
 constexpr float kAngleMargin = 2e-3f;
+constexpr float kMaxCullHeading = 1e3f;
 // obstacles wider than 30 degrees as seen from the boat go to every group
 constexpr float kMaxCullSine = 0.5f;
 
@@ -157,28 +141,13 @@ __device__ __forceinline__ Slot dead_slot() {
   return {0.f, 0.f, -1.f, CUDART_INF_F};
 }
 
-// A list of `cap` slots in shared memory.
-__device__ __forceinline__ Slot load_slot(const float4* list, int cap, int idx) {
-#if USV_RC_PACKED
+__device__ __forceinline__ Slot load_slot(const float4* list, int idx) {
   const float4 v = list[idx];
   return {v.x, v.y, v.z, v.w};
-#else
-  const float* f = reinterpret_cast<const float*>(list);
-  return {f[idx], f[cap + idx], f[2 * cap + idx], f[3 * cap + idx]};
-#endif
 }
 
-__device__ __forceinline__ void store_slot(float4* list, int cap, int idx,
-                                           const Slot& o) {
-#if USV_RC_PACKED
+__device__ __forceinline__ void store_slot(float4* list, int idx, const Slot& o) {
   list[idx] = make_float4(o.nx, o.ny, o.q, o.key);
-#else
-  float* f = reinterpret_cast<float*>(list);
-  f[idx] = o.nx;
-  f[cap + idx] = o.ny;
-  f[2 * cap + idx] = o.q;
-  f[3 * cap + idx] = o.key;
-#endif
 }
 
 // One MUFU.RSQ: the cone test needs three digits, and a flushed denormal
@@ -206,7 +175,7 @@ __device__ __forceinline__ void geometry(float c, float s, const Slot& o,
 // width. Where the groups are not cones the test below can use, the third is
 // -inf and no obstacle is outside.
 struct Groups {
-  float4 cone[kMaxRays];
+  float4 cone[kManyRays];
 };
 
 // How a launch lays rays, envs and shared memory out; see the note above.
@@ -227,7 +196,7 @@ Plan make_plan(int B, int R, int K, float resolution) {
   // is bound by the latency of one thread's chain, and more threads make it
   // shorter; above that it is bound by issue, and four rays a thread share
   // each pass of the loop and get cones a quarter as wide.
-  p.rays = USV_RC_RAYS ? USV_RC_RAYS : ((long long)B * R > kLatencyBoundRays ? kManyRays : 1);
+  p.rays = (long long)B * R > kLatencyBoundRays ? kManyRays : 1;
   const int per_lane = (R + p.rays - 1) / p.rays;
   p.log2_lanes = 0;
   while ((1 << p.log2_lanes) < per_lane && (1 << p.log2_lanes) < kThreads)
@@ -235,7 +204,7 @@ Plan make_plan(int B, int R, int K, float resolution) {
   p.log2_seg = 0;
   while ((1 << p.log2_seg) < K && p.log2_seg < 5) ++p.log2_seg;
   p.cap = K + kMaxAcc - 1;  // K slots and the padding of short n_acc classes
-  p.stride = (1 + (kCull ? p.rays : 1) * p.cap) | 1;
+  p.stride = (1 + p.rays * p.cap) | 1;
   p.envs_per_block = kThreads >> p.log2_lanes;
   p.smem = (size_t)p.envs_per_block * p.stride * sizeof(float4);
 
@@ -270,7 +239,6 @@ raycast_kernel(
     float* __restrict__ out,             // (B, R)
     int B, int R, int K, float max_range, float resolution, int log2_lanes,
     int log2_seg, int cap, int stride, const Groups groups) {
-  constexpr int LISTS = kCull ? RAYS : 1;
   extern __shared__ float4 smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -315,18 +283,17 @@ raycast_kernel(
         y = pose[be * 3 + 1];
         psi = pose[be * 3 + 2];
       }
-      const float cp = ANGLE_ADD || kCull ? cosf(psi) : 0.f;
-      const float sp = ANGLE_ADD || kCull ? sinf(psi) : 0.f;
+      const float cp = cosf(psi), sp = sinf(psi);
       // the groups' centre directions in the world frame
-      float ux[LISTS], uy[LISTS];
+      float ux[RAYS], uy[RAYS];
 #pragma unroll
-      for (int l = 0; l < LISTS; ++l) {
+      for (int l = 0; l < RAYS; ++l) {
         ux[l] = cp * groups.cone[l].x - sp * groups.cone[l].y;
         uy[l] = sp * groups.cone[l].x + cp * groups.cone[l].y;
       }
-      int count[LISTS][NACC];
+      int count[RAYS][NACC];
 #pragma unroll
-      for (int l = 0; l < LISTS; ++l) {
+      for (int l = 0; l < RAYS; ++l) {
 #pragma unroll
         for (int a = 0; a < NACC; ++a) count[l][a] = 0;
       }
@@ -345,7 +312,7 @@ raycast_kernel(
           if (valid)
             o = {nx, ny, FOLD ? r * r - (nx * nx + ny * ny) : r * r,
                  FIRST_HIT ? boundary[j] : 0.f};
-          keep = USV_RC_COMPACT ? valid : true;
+          keep = valid;
         }
         // The cone test: a ray can hit only an obstacle whose direction is
         // within asin(r/d) of the ray's; a group of rays only one within its
@@ -355,17 +322,14 @@ raycast_kernel(
         // (the margins dwarf the error of the fast reciprocal square root)
         const float per_reach = rough_rsqrt(o.nx * o.nx + o.ny * o.ny);
         const float sine = fabsf(r) * per_reach + kSineMargin;
-        const bool narrow = sine < kMaxCullSine;
+        const bool narrow = sine < kMaxCullSine && fabsf(psi) < kMaxCullHeading;
         const float cos2 = 1.f - sine * sine;
         const float cosine = cos2 * rough_rsqrt(cos2);
 #pragma unroll
-        for (int l = 0; l < LISTS; ++l) {
-          bool mine = keep;
-          if (kCull) {
-            const bool outside = (o.nx * ux[l] + o.ny * uy[l]) * per_reach <
-                                 groups.cone[l].z * cosine - groups.cone[l].w * sine;
-            mine = keep && !(narrow && outside);
-          }
+        for (int l = 0; l < RAYS; ++l) {
+          const bool outside = (o.nx * ux[l] + o.ny * uy[l]) * per_reach <
+                               groups.cone[l].z * cosine - groups.cone[l].w * sine;
+          const bool mine = keep && !(narrow && outside);
           int pos = 0;
 #pragma unroll
           for (int a = 0; a < NACC; ++a) {
@@ -375,25 +339,25 @@ raycast_kernel(
             if (cls == a) pos = count[l][a] + __popc(kept & below);
             count[l][a] += __popc(kept);
           }
-          if (mine) store_slot(row + 1 + l * cap, cap, pos * NACC + cls, o);
+          if (mine) store_slot(row + 1 + l * cap, pos * NACC + cls, o);
         }
       }
       int loops = 0;
 #pragma unroll
-      for (int l = 0; l < LISTS; ++l) {
+      for (int l = 0; l < RAYS; ++l) {
 #pragma unroll
         for (int a = 0; a < NACC; ++a) loops = max(loops, count[l][a]);
       }
-      if ((LISTS > 1 || NACC > 1) && env_ok) {
+      if ((RAYS > 1 || NACC > 1) && env_ok) {
         // pad every list's classes up to the common loop count
 #pragma unroll
-        for (int l = 0; l < LISTS; ++l) {
+        for (int l = 0; l < RAYS; ++l) {
           for (int j = seg_lane; j < loops * NACC; j += seg) {
             const int a = j % NACC;
             int kept = count[l][0];
 #pragma unroll
             for (int a2 = 1; a2 < NACC; ++a2) kept = a == a2 ? count[l][a2] : kept;
-            if (j / NACC >= kept) store_slot(row + 1 + l * cap, cap, j, dead_slot());
+            if (j / NACC >= kept) store_slot(row + 1 + l * cap, j, dead_slot());
           }
         }
       }
@@ -432,17 +396,13 @@ raycast_kernel(
 
     float best_key[RAYS][NACC];
     float best_dist[RAYS][NACC];   // no-defer first hit and true min
-    float best_xk[RAYS][NACC];     // defer first hit, values carried
-    float best_delta[RAYS][NACC];
-    int best_idx[RAYS][NACC];      // defer first hit, position carried
+    int best_idx[RAYS][NACC];      // defer first hit: the winner's list position
 #pragma unroll
     for (int j = 0; j < RAYS; ++j) {
 #pragma unroll
       for (int a = 0; a < NACC; ++a) {
         best_key[j][a] = CUDART_INF_F;
         best_dist[j][a] = max_range;
-        best_xk[j][a] = 0.f;
-        best_delta[j][a] = CUDART_INF_F;
         best_idx[j][a] = 0;
       }
     }
@@ -452,23 +412,16 @@ raycast_kernel(
 #pragma unroll
       for (int a = 0; a < NACC; ++a) {
         const int idx = it * NACC + a;
-        Slot shared_slot;
-        if (LISTS == 1) shared_slot = load_slot(row + 1, cap, idx);
 #pragma unroll
         for (int j = 0; j < RAYS; ++j) {
-          const Slot o = LISTS == 1 ? shared_slot : load_slot(row + 1 + j * cap, cap, idx);
+          const Slot o = load_slot(row + 1 + j * cap, idx);
           float xk, delta;
           geometry<FOLD>(c[j], s[j], o, xk, delta);
           if (FIRST_HIT && DEFER) {
             const float t = fmaxf(xk - max_range, 0.f);
             const bool better =
                 (xk >= 0.f) & (delta >= t * t) & (o.key < best_key[j][a]);
-            if (USV_RC_CARRY_INDEX) {
-              best_idx[j][a] = better ? idx : best_idx[j][a];
-            } else {
-              best_xk[j][a] = better ? xk : best_xk[j][a];
-              best_delta[j][a] = better ? delta : best_delta[j][a];
-            }
+            best_idx[j][a] = better ? idx : best_idx[j][a];
             best_key[j][a] = better ? o.key : best_key[j][a];
           } else if (FIRST_HIT) {
             const float dist = xk - sqrtf(delta);
@@ -494,8 +447,6 @@ raycast_kernel(
           const bool take = best_key[j][a] < best_key[j][0];
           best_key[j][0] = take ? best_key[j][a] : best_key[j][0];
           best_dist[j][0] = take ? best_dist[j][a] : best_dist[j][0];
-          best_xk[j][0] = take ? best_xk[j][a] : best_xk[j][0];
-          best_delta[j][0] = take ? best_delta[j][a] : best_delta[j][0];
           best_idx[j][0] = take ? best_idx[j][a] : best_idx[j][0];
         } else {
           best_dist[j][0] = fminf(best_dist[j][0], best_dist[j][a]);
@@ -503,12 +454,9 @@ raycast_kernel(
       }
       float result;
       if (FIRST_HIT && DEFER) {
-        float xk = best_xk[j][0], delta = best_delta[j][0];
         // no winner: the list's first slot may be stale, and is not used
-        if (USV_RC_CARRY_INDEX)
-          geometry<FOLD>(c[j], s[j],
-                         load_slot(row + 1 + (LISTS == 1 ? 0 : j) * cap, cap, best_idx[j][0]),
-                         xk, delta);
+        float xk, delta;
+        geometry<FOLD>(c[j], s[j], load_slot(row + 1 + j * cap, best_idx[j][0]), xk, delta);
         const float d = fminf(xk - sqrtf(delta), max_range);
         result = isfinite(best_key[j][0]) ? d : max_range;
       } else if (FIRST_HIT) {

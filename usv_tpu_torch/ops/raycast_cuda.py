@@ -5,10 +5,11 @@
 stream. On CPU tensors it returns :func:`raycast_cuda_reference` instead, and
 only then: on a CUDA tensor it launches the kernel or raises.
 
-The kernel is bound by instruction issue, not by bytes (its inputs are 556
-bytes per env at the main-path shapes) and not by latency: every one of its
-~14 float32 operations per ray-obstacle pair is unfused, to round as the
-plain version does. Its design spends on issue slots, shared-memory
+The function's bound is its bytes (556 in and 512 out per env at the
+main-path shapes: 1.3 us), but a kernel that tests every valid ray-obstacle
+pair is held by instruction issue long before: every one of its ~14 float32
+operations per pair is unfused, to round as the plain version does. So the
+design cuts pairs first, then spends on issue slots, shared-memory
 instructions and registers. While a warp stages the envs it computes into
 shared memory it drops the masked slots (a ballot and a popcount prefix keep
 the order), packs each kept slot into one 16-byte ``float4``, computes the
@@ -104,8 +105,10 @@ def resolve_options(n_acc, defer_sqrt, K):
     return n_acc, bool(defer_sqrt)
 
 
-def bind(lib):
-    """Declare the C signatures of a built ray-cast library."""
+@lru_cache(maxsize=None)
+def _library():
+    """The kernel's library, built on first use, with its C signatures."""
+    lib = _build.load("raycast")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.usv_raycast_launch.argtypes = [p] * 7 + [i, i, i, f, f, i, i, i, i, i, p]
     lib.usv_raycast_launch.restype = ctypes.c_int
@@ -115,46 +118,9 @@ def bind(lib):
 
 
 @lru_cache(maxsize=None)
-def _library():
-    """The kernel's library, built on first use."""
-    return bind(_build.load("raycast"))
-
-
-@lru_cache(maxsize=None)
-def _smem_bytes(lib, B: int, R: int, K: int) -> int:
+def _smem_bytes(B: int, R: int, K: int) -> int:
     """Dynamic shared memory a block of this launch takes."""
-    return lib.usv_raycast_smem_bytes(B, R, K)
-
-
-def launch(
-    lib, position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
-    sensor_span, boundary_distance, first_hit, n_acc, angle_addition,
-    fold_lateral, defer_sqrt,
-):
-    """Launch library ``lib``'s kernel on checked CUDA tensors and resolved
-    options (the arguments of :func:`raycast_cuda_reference`) -> (B, R)."""
-    B, K = obs_r.shape
-    if 2 * B * max(K, sensor_count) >= 2**31:
-        raise ValueError(f"raycast_cuda: B={B} envs exceed the kernel's 32-bit indices")
-    # a block's rows of shared memory: one float4 per obstacle slot per list
-    if _smem_bytes(lib, B, sensor_count, K) > _SMEM_LIMIT:
-        raise ValueError(f"raycast_cuda: K={K} obstacles exceed the kernel's shared memory")
-    ray_cs = ray_table(sensor_count, float(sensor_span), torch.float32, position.device)
-    out = torch.empty((B, sensor_count), dtype=torch.float32, device=position.device)
-    with torch.cuda.device(position.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.usv_raycast_launch(
-            position.data_ptr(), obs_xy.data_ptr(), obs_r.data_ptr(),
-            obs_mask.view(torch.uint8).data_ptr(), boundary_distance.data_ptr(),
-            ray_cs.data_ptr(), out.data_ptr(),
-            B, sensor_count, K, float(sensor_max_range),
-            float(sensor_span / sensor_count),
-            int(first_hit), int(defer_sqrt), int(fold_lateral),
-            int(angle_addition), int(n_acc), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
-    return out
+    return _library().usv_raycast_smem_bytes(B, R, K)
 
 
 def _check_inputs(**tensors):
@@ -210,14 +176,35 @@ def raycast_cuda(
         n = obs_xy - position[:, None, :2]
         boundary_distance = torch.hypot(n[..., 0], n[..., 1]) - obs_r
     _check_inputs(position=position, obs_r=obs_r, boundary_distance=boundary_distance)
-    args = (position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
-            sensor_span, boundary_distance, first_hit, n_acc, angle_addition,
-            fold_lateral, defer_sqrt)
     if position.device.type == "cpu":
-        return raycast_cuda_reference(*args)
+        return raycast_cuda_reference(
+            position, obs_xy, obs_r, obs_mask, sensor_count, sensor_max_range,
+            sensor_span, boundary_distance, first_hit, n_acc, angle_addition,
+            fold_lateral, defer_sqrt,
+        )
     if position.device.type != "cuda":
         raise ValueError(f"raycast_cuda: unsupported device {position.device}")
-    out = launch(_library(), *args)
+
+    if 2 * B * max(K, sensor_count) >= 2**31:
+        raise ValueError(f"raycast_cuda: B={B} envs exceed the kernel's 32-bit indices")
+    # a block's rows of shared memory: one float4 per obstacle slot per list
+    if _smem_bytes(B, sensor_count, K) > _SMEM_LIMIT:
+        raise ValueError(f"raycast_cuda: K={K} obstacles exceed the kernel's shared memory")
+    ray_cs = ray_table(sensor_count, float(sensor_span), torch.float32, position.device)
+    out = torch.empty((B, sensor_count), dtype=torch.float32, device=position.device)
+    with torch.cuda.device(position.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _library().usv_raycast_launch(
+            position.data_ptr(), obs_xy.data_ptr(), obs_r.data_ptr(),
+            obs_mask.view(torch.uint8).data_ptr(), boundary_distance.data_ptr(),
+            ray_cs.data_ptr(), out.data_ptr(),
+            B, sensor_count, K, float(sensor_max_range),
+            float(sensor_span / sensor_count),
+            int(first_hit), int(defer_sqrt), int(fold_lateral),
+            int(angle_addition), int(n_acc), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
     counter.launches += 1
     return out
 
