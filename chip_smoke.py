@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``usv-simple`` at 4096 lockstep envs, zero
-actions, auto-reset, obs consumed every step — through the entry points a
-user calls (``make``, ``rollout``, ``throughput``), after building the
-ray-cast kernel from ``usv_tpu_torch/csrc`` and holding it against its plain
-PyTorch version on the card. Phases, each of which exits non-zero on failure:
+Drives the port's main paths — ``usv-simple`` and the collision-avoidance env
+``usv-asmc-ca-v0`` at 4096 lockstep envs, zero actions, auto-reset, obs
+consumed every step — through the entry points a user calls (``make``,
+``BatchedEnv``, ``rollout``, ``throughput``), after building the ray-cast
+kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
+version on the card. Phases, each of which exits non-zero on failure:
 
 1. the card: name and power limit (nvidia-smi), device name and count;
 2. the build, with its registers and spills (``-Xptxas -v``);
@@ -17,15 +18,22 @@ PyTorch version on the card. Phases, each of which exits non-zero on failure:
    duplicated keys, where the tie order shows; and on grazing-incidence
    scenes against the plain version in float64 (the tangency bounds of the
    JAX suite);
-4. the main path: a small run on the card against the same run on the CPU
-   (atol=1e-4), then ``rollout`` and ``throughput`` at 4096 envs x 2048
-   steps, with the kernel launched exactly once per step;
+4. the ``usv-simple`` path: a small run on the card against the same run on
+   the CPU (atol=1e-4), then ``rollout`` and ``throughput`` at 4096 envs x
+   1024 steps, with the kernel launched exactly once per step;
 5. one step's kernels and device time (torch.profiler), for the idle share;
-6. the kernel's device time (CUDA events around a replayed CUDA graph)
+6. the hydrodynamic paths: each new id's ``BatchedEnv`` at 64 envs on the
+   card against the CPU; the collision-avoidance path at 4096 envs (two
+   launches per auto-reset step: the step's and the one inside the fresh
+   reset's bootstrap step), its step anatomy, the pooled against the
+   full-width reset, ``frame_stack=5`` with ``sanitize=True``; short
+   full-width runs of ``usv-asmc-simple`` and ``usv-aitsmc-simple``; and the
+   kernel against its plain version on the live states of the three paths;
+7. the kernel's device time (CUDA events around a replayed CUDA graph)
    beside its plain version's and its bound (the bytes, or the operations
    on the pairs this data needs, counted on the card), at the three shapes
-   the system launches, and with ``n_acc`` 1, 2 and 4 and with no slot valid
-   at the first.
+   the system launches, and with ``n_acc`` 1, 2 and 4, with no slot valid
+   and for an empty kernel of the same grid at the first.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -46,7 +54,9 @@ import numpy as np
 import torch
 
 NUM_ENVS = 4096
-N_STEPS = 2048
+N_STEPS = 1024
+CA_STEPS = 64      # the collision-avoidance path's steps per run
+HYDRO_STEPS = 32   # steps per run of the two hydrodynamic simple ids
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -239,63 +249,74 @@ def check_tangency(device):
     print(f"  unfused, 0.1 mm: 0 flips; fused, 0.1 mm at d=100: {fused}/256 flip scenes")
 
 
-def check_small_run_against_cpu(device):
-    """The auto-reset step on the card and on the CPU, fed the same uniform
-    blocks and actions (the CPU takes the plain ray-cast form, the card the
-    kernel). Everything but the sensor block agrees at atol=1e-4 at every
-    step; a sensor ray may differ only where the two sides' float32
-    positions (an ulp apart: cos/sin differ) straddle a grazing tangency,
-    the knife edge the tangency suite bounds, so at most 1 ray in 10^4 may,
-    and the reward only in such rows."""
-    from usv_tpu_torch.envs import simple
-    from usv_tpu_torch.envs.autoreset import make_autoreset_step
+def check_batched_env_against_cpu(device, env_id, sensor_from):
+    """``BatchedEnv`` of ``env_id`` on the card and on the CPU, fed the same
+    uniform blocks and actions (the CPU takes the plain ray-cast form, the
+    card the kernel), with truncations every 8 steps so that resets run. The
+    hydrodynamic ids integrate 5 to 20 controller+model substeps per step,
+    through which the last-bit differences of the two sides' cos, sin, atan2
+    and scalar division compound (to a few 1e-6 over these 24 steps).
+    Everything but the sensor block agrees at ATOL at every step. A sensor
+    ray may differ only where the two sides' float32 positions straddle a
+    grazing tangency, the knife edge the tangency suite bounds, so at most 1
+    ray in 10^4 may, the reward only in such rows, and the flags not at all.
+    Returns the largest non-sensor difference."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.vector import BatchedEnv
 
-    cfg = simple.SimpleEnvConfig(max_episode_steps=8)
-    n = simple.n_uniform(cfg)
-    auto = make_autoreset_step(cfg, simple.step, simple.reset_from_uniform, simple.reset_obs, n)
-    g = torch.Generator().manual_seed(7)
     B, T = 64, 24
+    g = torch.Generator().manual_seed(11)
+    sides = {}
+    for side, dev in (("cpu", "cpu"), ("card", device)):
+        handle = make(env_id, device=dev, max_episode_steps=8)
+        sides[side] = [BatchedEnv(handle, B), None, dev]
+    n = handle.n_uniform(handle.cfg)
     u0 = torch.rand((B, n), generator=g)
-    states = {"cpu": simple.reset_from_uniform(cfg, u0), "card": simple.reset_from_uniform(cfg, u0.to(device))}
-    flips = 0
+    for side in sides.values():
+        side[1], _ = side[0].reset(0, uniform=u0.to(side[2]))
+    flips, worst, dones = 0, 0.0, 0
     for t in range(T):
         u = torch.rand((B, n), generator=g)
         a = torch.rand((B, 2), generator=g) * 2 - 1
         out = {}
-        for side, dev in (("cpu", "cpu"), ("card", device)):
-            states[side], out[side] = auto(states[side], a.to(dev), uniform=u.to(dev))
+        for name, side in sides.items():
+            side[1], out[name] = side[0].step(side[1], a.to(side[2]), uniform=u.to(side[2]))
         c, k = out["cpu"], out["card"]
         diff = (k.obs.cpu() - c.obs).abs()
-        err = float(diff[:, :15].max())
-        check(err <= ATOL, f"step {t}: card vs CPU non-sensor obs differ by {err}")
-        ray_off = diff[:, 15:] > ATOL
+        err = float(diff[:, :sensor_from].max())
+        worst = max(worst, err)
+        check(err <= ATOL, f"{env_id} step {t}: card vs CPU non-sensor obs differ by {err}")
+        ray_off = diff[:, sensor_from:] > ATOL
         flips += int(ray_off.sum())
-        rew_off = (k.reward.cpu() - c.reward).abs() > ATOL
-        check(not bool((rew_off & ~ray_off.any(1)).any()), f"step {t}: reward differs")
-        check(torch.equal(k.done.cpu(), c.done), f"step {t}: done flags differ")
-    rays = B * T * cfg.sensor_count
-    check(flips * 10_000 <= rays, f"{flips} of {rays} sensor rays differ")
-    print(f"  card vs CPU, {B} envs x {T} steps: {flips} of {rays} rays differ by > {ATOL}")
+        # the reward of a row whose ray flipped may differ: not held
+        rew_err = float(((k.reward.cpu() - c.reward).abs() * ~ray_off.any(1)).max())
+        worst = max(worst, rew_err)
+        check(rew_err <= ATOL, f"{env_id} step {t}: reward differs by {rew_err}")
+        check(torch.equal(k.terminated.cpu(), c.terminated)
+              and torch.equal(k.truncated.cpu(), c.truncated), f"{env_id} step {t}: flags differ")
+        dones += int(c.done.sum())
+    rays = B * T * (handle.cfg.obs_dim - sensor_from)
+    check(flips * 10_000 <= rays, f"{env_id}: {flips} of {rays} sensor rays differ")
+    check(dones >= 2 * B, f"{env_id}: only {dones} episode ends")
+    print(f"  {env_id}: card vs CPU, {B} envs x {T} steps ({dones} resets): max non-sensor obs and "
+          f"reward difference {worst:.3g} (atol {ATOL}); {flips} of {rays} rays differ by "
+          f"> {ATOL}", flush=True)
+    return worst
 
 
-def step_anatomy(handle, state, generator, wall_ms):
-    """Kernels and device time of one auto-reset step at the main-path
-    width (torch.profiler over 20 steps) against the unprofiled wall time."""
+def step_anatomy(benv, state, wall_ms, steps=20):
+    """Kernels and device time of one auto-reset step of ``benv`` at its
+    width (torch.profiler over ``steps`` steps) against the unprofiled wall
+    time. Returns the figures per step."""
     from torch.profiler import ProfilerActivity, profile
 
-    from usv_tpu_torch.envs.autoreset import make_autoreset_step
-
-    cfg = handle.cfg
-    auto = make_autoreset_step(cfg, handle.step, handle.reset_from_uniform,
-                               handle.reset_obs, handle.n_uniform(cfg))
-    actions = torch.zeros((state.position.shape[0], cfg.action_dim), device=state.position.device)
-    steps = 20
+    actions = torch.zeros((benv.num_envs, benv.cfg.action_dim), device=benv.device)
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                state, _ = auto(state, actions, generator)
+                state, _ = benv.step(state, actions)
             torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     check(kernels, "the profiler saw no device activity")
@@ -303,7 +324,165 @@ def step_anatomy(handle, state, generator, wall_ms):
     ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / steps
     busy = device_ms / wall_ms
     print(f"  per step: {len(kernels) / steps:.0f} device kernels, {ops:.0f} aten op calls, "
-          f"device busy {device_ms:.4f} ms of {wall_ms:.4f} ms wall (idle share {1 - busy:.3f})")
+          f"device busy {device_ms:.4f} ms of {wall_ms:.4f} ms wall (idle share {1 - busy:.3f})",
+          flush=True)
+    return {"device_kernels": len(kernels) / steps, "aten_calls": ops, "device_ms": device_ms,
+            "wall_ms": wall_ms, "idle_share": 1 - busy}
+
+
+def time_steps(benv, n_steps, warm=8, seed=0):
+    """Wall ms per zero-action auto-reset step of ``benv`` with the obs and
+    reward consumed every step: reset, ``warm`` steps, then ``n_steps`` timed
+    ones between device synchronizes. Returns (ms per step, state, done count)."""
+    actions = torch.zeros((benv.num_envs, benv.cfg.action_dim), device=benv.device)
+    state, obs = benv.reset(seed)
+    acc = torch.zeros((), device=benv.device)
+    dones = torch.zeros((), dtype=torch.int64, device=benv.device)
+    for i in range(warm + n_steps):
+        if i == warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, ts = benv.step(state, actions)
+        acc += ts.reward.sum() + ts.obs[:, 0].sum()
+        dones += ts.done.sum()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    check(bool(torch.isfinite(acc)), "non-finite reward or obs in a timed run")
+    return ms, state, int(dones)
+
+
+def live_scene(env_id, cfg, state):
+    """The ray-cast inputs a step of ``env_id`` builds from ``state``."""
+    if env_id == "usv-asmc-ca-v0":
+        pose, pad, rays = state.dyn.pose, cfg.boat_radius, cfg.sensor_num
+    else:
+        state = getattr(state, "base", state)
+        pose, pad, rays = state.position, 0.0, cfg.sensor_count
+    n = state.obs_xy - pose[:, None, :2]
+    boundary = torch.hypot(n[..., 0], n[..., 1]) - state.obs_r - pad
+    args = (pose, state.obs_xy, state.obs_r, state.obs_mask, rays, cfg.sensor_max_range,
+            cfg.sensor_span)
+    return args, boundary
+
+
+def check_kernel_on_live_state(env_id, cfg, state):
+    """The kernel against its plain version on a path's own live state."""
+    args, boundary = live_scene(env_id, cfg, state)
+    worst = 0.0
+    for first_hit in (True, False):
+        err, got = compare_with_plain(f"{env_id} live state", args, cfg.sensor_max_range,
+                                      boundary_distance=boundary, first_hit=first_hit)
+        worst = max(worst, err)
+    B, K = args[3].shape
+    hits = float((got < cfg.sensor_max_range).float().mean())
+    print(f"  {env_id}: kernel vs plain on the live state, B={B} R={args[4]} K={K}, "
+          f"{int(args[3].sum())} valid slots, hit share {hits:.3f}: max err {worst:.3g}",
+          flush=True)
+    return worst
+
+
+def hydro_paths(device, card, rc):
+    """Phase 6: the three hydrodynamic ids on the card. Returns the keys the
+    ``raycast`` record gains, the largest kernel-vs-plain difference, and the
+    CA env's config and last live state (for the kernel-time phase)."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.vector import BatchedEnv, BatchState, rollout, throughput
+
+    for env_id, sensor_from in (("usv-asmc-ca-v0", 7), ("usv-asmc-simple", 15),
+                                ("usv-aitsmc-simple", 15)):
+        check_batched_env_against_cpu(device, env_id, sensor_from)
+
+    # the collision-avoidance path at full width, through the entry points
+    handle = make("usv-asmc-ca-v0")
+    check(handle.device.type == "cuda", "make() did not default to the card")
+    cfg = handle.cfg
+    rc.counter.launches = 0
+    state, obs, reward_sum, done_count = rollout(handle, NUM_ENVS, CA_STEPS, seed=0)
+    out = throughput(handle, num_envs=NUM_ENVS, n_steps=CA_STEPS, repeats=REPEATS)
+    launches = rc.counter.launches
+    # a run resets once (one launch: the reset's bootstrap step) and every
+    # auto-reset step launches twice (the step's, the fresh reset's)
+    runs = 2 + REPEATS
+    expected = runs * (1 + 2 * CA_STEPS)
+    check(launches == expected, f"CA path: {launches} kernel launches, expected {expected}")
+    check(obs.shape == (NUM_ENVS, cfg.obs_dim), f"CA obs shape {tuple(obs.shape)}")
+    check(bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward_sum)), "CA: non-finite")
+    sensor = obs[:, 7:]
+    check(bool(((sensor >= 0) & (sensor <= 1)).all()), "CA sensor block outside [0, 1]")
+    check(bool((sensor < 1).any()), "CA: no ray sees an obstacle")
+    ca_ms = out["seconds"] / CA_STEPS * 1e3
+    print(f"  usv-asmc-ca-v0: {out['steps_per_second']:.1f} env-steps/s, {ca_ms:.4f} ms per step "
+          f"({NUM_ENVS} envs x {CA_STEPS} steps, best of {REPEATS}: {out['seconds']:.4f} s) on {card}")
+    print(f"  kernel launches {launches} = {runs} runs x (1 + 2 x {CA_STEPS}); reward sum "
+          f"{float(reward_sum):.6g}, episode ends {int(done_count)}", flush=True)
+    max_err = check_kernel_on_live_state("usv-asmc-ca-v0", cfg, state)
+
+    benv = BatchedEnv(handle, NUM_ENVS)
+    benv.generator = torch.Generator(device=device).manual_seed(1)
+    anatomy = step_anatomy(benv, BatchState(env=state, frames=None), ca_ms)
+
+    # the batch layer's options against the bare full-width step, in turns and
+    # back (the host's pace drifts by tens of percent within a run). Every
+    # variant launches twice a step: the pool's reset runs its bootstrap step
+    # at width F. The pooled step reads done.sum() back every step.
+    variants = {
+        "reset_pool=0": {"reset_pool": 0},
+        "reset_pool=64": {"reset_pool": 64},
+        "reset_pool=512": {"reset_pool": 512},
+        "frame_stack=5": {"frame_stack": 5},
+        "sanitize=True": {"sanitize": True},
+        "frame_stack=5, sanitize=True": {"frame_stack": 5, "sanitize": True},
+    }
+    variant_ms = {name: [] for name in variants}
+    names = list(variants)
+    for name in names[::-1] + names:
+        rc.counter.launches = 0
+        benv = BatchedEnv(handle, NUM_ENVS, **variants[name])
+        ms, bstate, dones = time_steps(benv, 32)
+        check(rc.counter.launches == 1 + 2 * (8 + 32), f"{name}: {rc.counter.launches} launches")
+        variant_ms[name].append(ms)
+    for name, times in variant_ms.items():
+        print(f"  {name}: {min(times):.4f} ms per step (best of {[round(t, 4) for t in times]}, "
+              f"32 steps each, {dones} episode ends)", flush=True)
+
+    # the last variant run had both options on
+    check(bstate.frames.shape == (NUM_ENVS, 5, cfg.obs_dim), f"frames {tuple(bstate.frames.shape)}")
+    check(bstate.stacked_obs.shape == (NUM_ENVS, 5 * cfg.obs_dim), "stacked obs shape")
+    check(bool(torch.isfinite(bstate.frames).all()), "non-finite frame stack")
+    benv = BatchedEnv(handle, NUM_ENVS, frame_stack=5, sanitize=True)
+    benv.generator = torch.Generator(device=device).manual_seed(2)
+    bstate, ts = benv.step(bstate, torch.zeros((NUM_ENVS, 2), device=device))
+    check(ts.info["diverged"].shape == (NUM_ENVS,) and not bool(ts.info["diverged"].any()),
+          "an env diverged under zero actions")
+    print(f"  frame_stack=5, sanitize=True: frames {tuple(bstate.frames.shape)}, stacked obs "
+          f"{tuple(bstate.stacked_obs.shape)}, all finite, no env diverged", flush=True)
+
+    extra = {"ca_launches": launches, "ca_steps_run": runs * CA_STEPS,
+             "ca_env_steps_per_s": out["steps_per_second"], "ca_ms_per_step": ca_ms,
+             "ca_step_anatomy": anatomy,
+             "ca_batch_options_ms_per_step": variant_ms}
+
+    # short full-width runs of the two hydrodynamic simple ids: one launch a
+    # step (their reset casts no ray)
+    for env_id in ("usv-asmc-simple", "usv-aitsmc-simple"):
+        handle = make(env_id)
+        rc.counter.launches = 0
+        state, obs, reward_sum, _ = rollout(handle, NUM_ENVS, HYDRO_STEPS, seed=0)
+        out = throughput(handle, num_envs=NUM_ENVS, n_steps=HYDRO_STEPS, repeats=2)
+        launches = rc.counter.launches
+        check(launches == 4 * HYDRO_STEPS, f"{env_id}: {launches} launches for {4 * HYDRO_STEPS} steps")
+        check(obs.shape == (NUM_ENVS, handle.cfg.obs_dim) and bool(torch.isfinite(obs).all())
+              and bool(torch.isfinite(reward_sum)), f"{env_id}: bad obs or reward")
+        ms = out["seconds"] / HYDRO_STEPS * 1e3
+        print(f"  {env_id}: {out['steps_per_second']:.1f} env-steps/s, {ms:.4f} ms per step "
+              f"({NUM_ENVS} envs x {HYDRO_STEPS} steps, best of 2), {launches} launches for "
+              f"{4 * HYDRO_STEPS} steps", flush=True)
+        max_err = max(max_err, check_kernel_on_live_state(env_id, handle.cfg, state))
+        key = env_id.split("-")[1]
+        extra.update({f"{key}_simple_launches": launches,
+                      f"{key}_simple_env_steps_per_s": out["steps_per_second"],
+                      f"{key}_simple_ms_per_step": ms})
+    return extra, max_err, cfg, bstate.env
 
 
 def main():
@@ -315,7 +494,7 @@ def main():
     from usv_tpu_torch.envs.simple import SimpleEnvConfig
     from usv_tpu_torch.ops import raycast_cuda as rc
     from usv_tpu_torch.timing import time_cuda, time_device
-    from usv_tpu_torch.vector import rollout, throughput
+    from usv_tpu_torch.vector import BatchedEnv, BatchState, rollout, throughput
 
     device = torch.device("cuda")
     phase("card")
@@ -349,8 +528,8 @@ def main():
     max_err = check_kernel(device)
     check_tangency(device)
 
-    phase("main path")
-    check_small_run_against_cpu(device)
+    phase("main path: usv-simple")
+    check_batched_env_against_cpu(device, "usv-simple", sensor_from=15)
     handle = make("usv-simple")
     check(handle.device.type == "cuda", "make() did not default to the card")
     torch.cuda.reset_peak_memory_stats()
@@ -376,7 +555,13 @@ def main():
     phase("step anatomy")
     g = torch.Generator(device=device)
     g.manual_seed(1)
-    step_anatomy(handle, state, g, out["seconds"] / N_STEPS * 1e3)
+    benv = BatchedEnv(handle, NUM_ENVS)
+    benv.generator = g
+    step_anatomy(benv, BatchState(env=state, frames=None), out["seconds"] / N_STEPS * 1e3)
+
+    phase("hydrodynamic paths: usv-asmc-ca-v0, usv-asmc-simple, usv-aitsmc-simple")
+    hydro_record, live_err, ca_cfg, ca_state = hydro_paths(device, card, rc)
+    max_err = max(max_err, live_err)
 
     phase("kernel time")
 
@@ -424,9 +609,20 @@ def main():
     # what a launch costs before its loop runs: the same inputs with no slot valid
     no_slot = (*args[:3], torch.zeros_like(state.obs_mask), *args[4:])
     no_slot_ms = time_device(lambda: rc.raycast_cuda(*no_slot, boundary_distance=bd))
-    print(f"  with no slot valid {no_slot_ms:.5f} ms; an eager call from Python {call_ms:.5f} ms")
-    other_rows = []
-    for label, R, K in (("CA env's shape, reset state,", 16, 16), ("curved env's shape, reset state,", 32, 16)):
+    # and before any of its work: a kernel that does nothing, on the same grid
+    empty_ms = time_device(lambda: rc.launch_empty_grid(NUM_ENVS, cfg.sensor_count, cfg.obstacle_cap,
+                                                        cfg.sensor_span))
+    print(f"  with no slot valid {no_slot_ms:.5f} ms; an empty kernel of the same grid "
+          f"{empty_ms:.5f} ms; an eager call from Python {call_ms:.5f} ms")
+    # the CA env's shape on its own live state (the frame-stacked run's last)
+    ca_args, ca_bd = live_scene("usv-asmc-ca-v0", ca_cfg, ca_state)
+    other_rows = [time_shape("CA env, its run's last state,", ca_args, ca_bd, ca_state.obs_mask)]
+    ca_empty_ms = time_device(lambda: rc.launch_empty_grid(NUM_ENVS, ca_cfg.sensor_num,
+                                                           ca_cfg.obstacle_cap, ca_cfg.sensor_span))
+    other_rows[0]["empty_kernel_ms"] = ca_empty_ms
+    print(f"  an empty kernel of the CA launch's grid {ca_empty_ms:.5f} ms")
+    for label, R, K in (("CA env's shape, simple reset's scene,", 16, 16),
+                        ("curved env's shape, simple reset's scene,", 32, 16)):
         other = SimpleEnvConfig(sensor_count=R, obstacle_cap=K)
         pos, oxy, orr, mask, obd = scene(other, NUM_ENVS, g, device, scatter=False)
         other_rows.append(time_shape(label, (pos, oxy, orr, mask, R, other.sensor_max_range,
@@ -451,11 +647,13 @@ def main():
         "ops_every_valid_pair_ms": main_row["ops_every_valid_pair_ms"],
         "issue_ceiling_ms": main_row["issue_ceiling_ms"],
         "no_slot_valid_ms": no_slot_ms,
+        "empty_kernel_ms": empty_ms,
         "ms_n_acc2": main_row["ms_n_acc2"],
         "ms_n_acc4": main_row["ms_n_acc4"],
         "eager_call_ms": call_ms,
         "env_steps_per_s": out["steps_per_second"],
         "other_shapes": other_rows,
+        **hydro_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

@@ -12,6 +12,10 @@ CUDA. Run them on a machine with one:
   against the float64 native oracle, with that suite's bounds.
 * The auto-reset step on the card against the same step on the CPU, and one
   kernel launch per step.
+* Each hydrodynamic id's ``BatchedEnv`` on the card: the launch counter moves
+  as the step structure predicts (the collision-avoidance reset holds a whole
+  step), the plain versions never run, and ``raycast_backend="xla"`` on the
+  card agrees with the kernel.
 """
 
 import itertools
@@ -319,3 +323,76 @@ def test_rollout_on_card_launches_once_per_step(cuda):
     assert counter.launches == before + 20
     assert torch.isfinite(obs).all() and math.isfinite(float(reward_sum))
     assert ((obs[:, 15:] >= 0) & (obs[:, 15:] <= 1)).all()
+
+
+# launches per BatchedEnv.reset and per auto-reset step: the CA reset holds a
+# whole step (its bootstrap), the simple families' resets cast no ray
+_NEW_IDS = {"usv-asmc-ca-v0": (1, 2, 7), "usv-asmc-simple": (0, 1, 15),
+            "usv-aitsmc-simple": (0, 1, 15)}
+
+
+@pytest.mark.parametrize("reset_pool", [0, 4])
+@pytest.mark.parametrize("env_id", sorted(_NEW_IDS))
+def test_new_ids_launch_the_kernel_on_card(cuda, monkeypatch, env_id, reset_pool):
+    """Each new id's ``BatchedEnv`` on the card goes through the kernel (the
+    launch counter moves as the step structure predicts) and never through
+    the plain version or the plain torch form, which raise here."""
+    from usv_tpu_torch.ops import dispatch, raycast_cuda as rc_module
+    from usv_tpu_torch.vector import BatchedEnv
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain ray-cast ran on the card")
+
+    monkeypatch.setattr(rc_module, "raycast_cuda_reference", forbidden)
+    monkeypatch.setattr(dispatch, "raycast", forbidden)
+    monkeypatch.setattr(dispatch, "raycast_first_hit_compat", forbidden)
+    per_reset, per_step, sensor_from = _NEW_IDS[env_id]
+    h = make(env_id, max_episode_steps=3)
+    assert h.device.type == "cuda"
+    benv = BatchedEnv(h, 64, frame_stack=2, sanitize=True, reset_pool=reset_pool)
+    before = counter.launches
+    state, obs = benv.reset(0)
+    assert counter.launches == before + per_reset
+    actions = torch.zeros((64, 2), device=cuda)
+    for t in range(4):  # step 3 is a wave of 64 truncations: the full-width path
+        before = counter.launches
+        state, ts = benv.step(state, actions)
+        assert counter.launches == before + per_step
+    assert ts.obs.is_cuda and torch.isfinite(ts.obs).all() and torch.isfinite(ts.reward).all()
+    sensors = ts.obs[:, sensor_from:]
+    assert ((sensors >= 0) & (sensors <= 1)).all()
+    assert state.frames.shape == (64, 2, h.cfg.obs_dim) and not ts.info["diverged"].any()
+
+
+@pytest.mark.parametrize("env_id", sorted(_NEW_IDS))
+def test_new_ids_xla_backend_on_card_agrees_with_kernel(cuda, env_id):
+    """``raycast_backend="xla"`` (the plain torch form, on the card) against
+    the kernel from one state: everything but the sensor block is the same
+    computation and equal; the sensor block agrees at atol=1e-4 but for
+    grazing flips (at most 1 ray in 10^3 on this one step), and the xla path
+    launches no kernel."""
+    _, _, sensor_from = _NEW_IDS[env_id]
+    hk, hx = make(env_id), make(env_id, raycast_backend="xla")
+    g = torch.Generator(device=cuda).manual_seed(5)
+    state = hk.reset(hk.cfg, g, 256, cuda)
+    action = torch.rand((256, 2), generator=g, device=cuda) * 2 - 1
+    before = counter.launches
+    _, kts = hk.step(hk.cfg, state, action)
+    assert counter.launches == before + 1
+    _, xts = hx.step(hx.cfg, state, action)
+    assert counter.launches == before + 1
+    assert torch.equal(kts.obs[:, :sensor_from], xts.obs[:, :sensor_from])
+    assert torch.equal(kts.terminated, xts.terminated) and torch.equal(kts.truncated, xts.truncated)
+    off = (kts.obs[:, sensor_from:] - xts.obs[:, sensor_from:]).abs() > 1e-4
+    assert int(off.sum()) * 1000 <= off.numel()
+    assert (kts.obs[:, sensor_from:] < 1).any()
+
+
+def test_empty_grid_launch_is_not_counted(cuda):
+    from usv_tpu_torch.ops.raycast_cuda import launch_empty_grid
+
+    before = counter.launches
+    launch_empty_grid(4096, 128, 32)
+    launch_empty_grid(4096, 16, 16)
+    torch.cuda.synchronize()
+    assert counter.launches == before

@@ -1,9 +1,14 @@
 """usv_tpu_torch — the PyTorch/CUDA port of ``usv_tpu``, for NVIDIA Hopper.
 
-This package runs the ``usv-simple`` auto-reset rollout end to end on an
-H100; its ray-cast sensor is a CUDA kernel written by hand for ``sm_90a``
-(``csrc/raycast.cu``). Subpackages mirror ``usv_tpu`` module for module so a
-reader finds each counterpart at the same path.
+This package runs four env ids end to end on an H100 (``usv-simple``,
+``usv-asmc-simple``, ``usv-aitsmc-simple`` and the collision-avoidance env
+``usv-asmc-ca-v0``) through ``BatchedEnv`` and the auto-reset rollout, with
+the Fossen vehicle physics and the ASMC, AITSMC and PID controllers under
+them. The ray-cast sensor that every one of them reaches is a CUDA kernel
+written by hand for ``sm_90a`` (``csrc/raycast.cu``); the rest is eager
+tensor ops. Subpackages mirror ``usv_tpu`` module for module so a reader
+finds each counterpart at the same path. Not ported yet: the curved and
+legacy env ids, the learners, the data-parallel layer, the gym adapters.
 
 Rules of the port
 -----------------
@@ -13,16 +18,19 @@ Rules of the port
   ``jax`` and nothing of ``usv_tpu`` (not even its numpy-only modules, whose
   import runs the ``usv_tpu`` package). What the port needs from such a
   module it keeps its own copy of. Only the tests import both packages.
-* Entry points run on the card: ``make(..., device=None)``, ``rollout`` and
-  ``throughput`` use ``torch.device("cuda")`` and raise when CUDA is absent.
+* Entry points run on the card: ``make(..., device=None)``, ``BatchedEnv``,
+  ``rollout`` and ``throughput`` use ``torch.device("cuda")`` and raise when
+  CUDA is absent.
   The CPU is used only when the caller asks for it (the tests do).
-* Batch-first tensors: an env state is a dataclass of ``(B, ...)`` tensors;
-  JAX's ``vmap`` is an explicit batch dimension. States are values, as in
+* Batch-first tensors: an env state is a dataclass of ``(B, ...)`` tensors
+  (or of further such dataclasses: ``base``, ``ctrl``, ``dyn``); JAX's
+  ``vmap`` is an explicit batch dimension, its ``lax.scan`` a Python loop. States are values, as in
   JAX: functions return new states and never write into a field, and a
   field may be a broadcast view.
 * Randomness comes from an explicit ``torch.Generator`` on the state's
-  device, owned by the rollout; JAX's per-env ``key`` leaf is dropped. The
-  distributions are JAX's, the bit streams are not.
+  device, owned by the batch; JAX's per-env ``key`` leaf is dropped. Each
+  reset is a transform of one uniform block, so a test can feed it JAX's own
+  draws. The distributions are JAX's, the bit streams are not.
 * Every TPU kernel on a ported path has a hand-written CUDA counterpart
   with a plain PyTorch version beside it. A kernel wrapper takes the plain
   version only for CPU tensors; on a CUDA tensor it launches or raises.
@@ -30,9 +38,12 @@ Rules of the port
 Subpackages
 -----------
 core    : angle/geometry math
+physics : vehicle coefficients, Fossen 3-DOF dynamics
+control : ASMC, AITSMC and PID controllers, the substep runner
 ops     : the ray-cast sensor (plain torch form, CUDA kernel, dispatch)
-envs    : the functional ``usv-simple`` core, auto-reset, registry
-vector  : the device-resident rollout and the throughput protocol
+envs    : the four functional env cores, auto-reset (full, pooled), registry
+vector  : ``BatchedEnv``, the frame stack, the rollout and throughput protocol
+utils   : numerical guards
 convert : carrying JAX states (as numpy arrays) across to the port
 """
 

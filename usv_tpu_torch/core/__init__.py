@@ -1,3 +1,5 @@
+"""Angle and 2-D geometry math shared by guidance, sensors and envs."""
+
 from usv_tpu_torch.core.angles import wrap_angle, wrap_angle_once
 from usv_tpu_torch.core.geometry import (
     angle_to_point,

@@ -510,7 +510,23 @@ void launch_mode(bool fold, bool angle_add, int n_acc, const Args& a) {
   return launch_acc<FIRST_HIT, DEFER, false, false>(n_acc, a);
 }
 
+// Does nothing: what a launch of this grid costs before any of its work. The
+// port's paths never launch it; the smoke script times it beside the kernel.
+__global__ void empty_kernel() {}
+
 }  // namespace
+
+// Launches the empty kernel with the grid, block and dynamic shared memory a
+// ray-cast launch of these shapes takes; returns cudaGetLastError().
+extern "C" int usv_raycast_launch_empty(int B, int R, int K, float resolution,
+                                        void* stream_ptr) {
+  if (B > 0 && R > 0) {
+    const Plan p = make_plan(B, R, K, resolution);
+    const int grid = (B + p.envs_per_block - 1) / p.envs_per_block;
+    empty_kernel<<<grid, kThreads, p.smem, static_cast<cudaStream_t>(stream_ptr)>>>();
+  }
+  return (int)cudaGetLastError();
+}
 
 // Dynamic shared memory of a launch at these shapes; the launcher in
 // ops/raycast_cuda.py holds it against the 48 KB a block gets without opt-in.

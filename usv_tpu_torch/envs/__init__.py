@@ -1,3 +1,11 @@
+"""The env families as batch-first functional cores (``usv-simple``,
+``usv-asmc-simple``, ``usv-aitsmc-simple``, ``usv-asmc-ca-v0``), the auto-reset
+(full width and pooled) and the registry."""
+
 from usv_tpu_torch.envs.types import TimeStep
 from usv_tpu_torch.envs.registry import EnvHandle, make, registered_ids
-from usv_tpu_torch.envs.autoreset import make_autoreset_step
+from usv_tpu_torch.envs.autoreset import (
+    default_reset_pool,
+    make_autoreset_step,
+    make_pooled_autoreset_step,
+)

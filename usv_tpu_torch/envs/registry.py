@@ -1,8 +1,11 @@
 """Environment registry — port of ``usv_tpu/envs/registry.py``.
 
 ``make(env_id, device=None, **overrides)`` returns an :class:`EnvHandle`
-bound to a device: the CUDA card unless the caller names another one.
-Only ``usv-simple`` is registered so far.
+bound to a device: the CUDA card unless the caller names another one. Each
+entry bundles the config class and the batch-first pure functions of one env
+family. Registered: ``usv-simple``, ``usv-asmc-simple``, ``usv-aitsmc-simple``
+and ``usv-asmc-ca-v0``; the JAX package's curved and legacy ids are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from usv_tpu_torch.envs import simple
+from usv_tpu_torch.envs import asmc_ca, simple, simple_aitsmc, simple_asmc
 
 
 class EnvHandle(NamedTuple):
@@ -23,19 +26,28 @@ class EnvHandle(NamedTuple):
     n_uniform: Callable           # cfg -> width of one reset's uniform block
     step: Callable                # (cfg, state, action) -> (state, TimeStep)
     reset_obs: Callable           # (cfg, state) -> obs
-    reset_info: Optional[Callable] = None  # (cfg, state) -> info dict
+    # (cfg, state) -> info dict of the post-reset state, for the families
+    # whose reference reset returns one; None elsewhere
+    reset_info: Optional[Callable] = None
+
+
+def _entry(module, config_cls, reset_info=True):
+    return dict(
+        config_cls=config_cls,
+        reset=module.reset,
+        reset_from_uniform=module.reset_from_uniform,
+        n_uniform=module.n_uniform,
+        step=module.step,
+        reset_obs=module.reset_obs,
+        reset_info=module.reset_info if reset_info else None,
+    )
 
 
 _REGISTRY = {
-    "usv-simple": dict(
-        config_cls=simple.SimpleEnvConfig,
-        reset=simple.reset,
-        reset_from_uniform=simple.reset_from_uniform,
-        n_uniform=simple.n_uniform,
-        step=simple.step,
-        reset_obs=simple.reset_obs,
-        reset_info=simple.reset_info,
-    ),
+    "usv-simple": _entry(simple, simple.SimpleEnvConfig),
+    "usv-asmc-simple": _entry(simple_asmc, simple_asmc.SimpleAsmcEnvConfig),
+    "usv-aitsmc-simple": _entry(simple_aitsmc, simple_aitsmc.SimpleAitsmcEnvConfig),
+    "usv-asmc-ca-v0": _entry(asmc_ca, asmc_ca.CaEnvConfig, reset_info=False),
 }
 
 

@@ -244,7 +244,7 @@ def reset_info(cfg: SimpleEnvConfig, state: SimpleEnvState):
     )
 
 
-def _box_muller(u1, u2):
+def box_muller(u1, u2):
     """Exact standard normals from a uniform pair; u1 in [0, 1) is guarded
     away from log(0) as the JAX reset does."""
     r = torch.sqrt(-2.0 * torch.log(torch.clamp_min(u1, 1e-38)))
@@ -266,7 +266,7 @@ def reset_from_uniform(cfg: SimpleEnvConfig, u: torch.Tensor) -> SimpleEnvState:
     half = cfg.env_bound / 2.0
     device = u.device
 
-    n0, n1 = _box_muller(u[:, 0], u[:, 1])
+    n0, n1 = box_muller(u[:, 0], u[:, 1])
     path_start = torch.stack([n0, n1], dim=-1) * 0.5 + half
     heading = u[:, 2] * TWO_PI - math.pi
     position = torch.cat([path_start, heading[:, None]], dim=-1)
@@ -298,7 +298,7 @@ def reset_from_uniform(cfg: SimpleEnvConfig, u: torch.Tensor) -> SimpleEnvState:
         # slots; bound is hypot(0, env_bound) = env_bound (reference :281)
         base = 16 + 3 * K
         mag = u[:, base:base + P] * cfg.env_bound
-        j0, j1 = _box_muller(u[:, base + P:base + 2 * P], u[:, base + 2 * P:base + 3 * P])
+        j0, j1 = box_muller(u[:, base + P:base + 2 * P], u[:, base + 2 * P:base + 3 * P])
         line = path_start[:, None, :] + direction[:, None, :] * mag[:, :, None]
         path_obs = line + torch.stack([j0, j1], dim=-1)
         obs_xy = torch.cat([obs_xy[:, :n_random], path_obs], dim=1)

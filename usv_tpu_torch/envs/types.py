@@ -6,7 +6,9 @@ Every environment is a pair of functions over batch-first tensor states
     step(cfg, state, action)                -> (EnvState, TimeStep)
 
 where every tensor of a state or a TimeStep has the env batch as its first
-dimension.
+dimension. A state is a frozen dataclass whose fields are tensors or further
+such dataclasses (``SimpleAsmcEnvState.base``, ``.ctrl``); :func:`tree_map`
+walks them.
 """
 
 from __future__ import annotations
@@ -31,3 +33,27 @@ class TimeStep:
     @property
     def done(self):
         return torch.logical_or(self.terminated, self.truncated)
+
+
+def tree_map(fn, state, *others):
+    """``fn`` applied to every tensor leaf of ``state`` (and to the matching
+    leaves of ``others``), the results put back into the same dataclasses.
+    Fields that are dataclasses are walked; ``None`` stays ``None``."""
+    if state is None:
+        return None
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{
+            f.name: tree_map(fn, getattr(state, f.name), *(getattr(o, f.name) for o in others))
+            for f in dataclasses.fields(state)
+        })
+    return fn(state, *others)
+
+
+def tree_leaves(state):
+    """The tensor leaves of a (nested) state, in field order."""
+    if state is None:
+        return []
+    if dataclasses.is_dataclass(state):
+        return [leaf for f in dataclasses.fields(state)
+                for leaf in tree_leaves(getattr(state, f.name))]
+    return [state]

@@ -114,6 +114,8 @@ def _library():
     lib.usv_raycast_launch.restype = ctypes.c_int
     lib.usv_raycast_smem_bytes.argtypes = [i, i, i]
     lib.usv_raycast_smem_bytes.restype = ctypes.c_longlong
+    lib.usv_raycast_launch_empty.argtypes = [i, i, i, f, p]
+    lib.usv_raycast_launch_empty.restype = ctypes.c_int
     return lib
 
 
@@ -207,6 +209,19 @@ def raycast_cuda(
         raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
     counter.launches += 1
     return out
+
+
+def launch_empty_grid(B: int, sensor_count: int, K: int, sensor_span: float = DEFAULT_SPAN):
+    """Launch a kernel that does nothing on the grid :func:`raycast_cuda`
+    takes at these shapes, on PyTorch's current stream: a measurement's floor,
+    which no path of the port calls and the launch counter does not count."""
+    with torch.cuda.device(torch.cuda.current_device()):
+        err = _library().usv_raycast_launch_empty(
+            B, sensor_count, K, float(sensor_span / sensor_count),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def raycast_cuda_reference(

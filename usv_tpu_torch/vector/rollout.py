@@ -14,8 +14,8 @@ import time
 
 import torch
 
-from usv_tpu_torch.envs.autoreset import make_autoreset_step
 from usv_tpu_torch.envs.registry import EnvHandle
+from usv_tpu_torch.vector.batch import BatchedEnv
 
 
 def _sync(device: torch.device):
@@ -23,34 +23,32 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def rollout(handle: EnvHandle, num_envs: int, n_steps: int, seed: int = 0):
+def rollout(handle: EnvHandle, num_envs: int, n_steps: int, seed: int = 0, **batch_options):
     """Run ``n_steps`` zero-action auto-reset steps of ``num_envs`` envs on
-    ``handle.device``, with randomness from a generator seeded by ``seed``.
+    ``handle.device`` through :class:`BatchedEnv` (``batch_options``:
+    ``frame_stack``, ``sanitize``, ``reset_pool``), with randomness from a
+    generator seeded by ``seed``.
 
-    Returns ``(state, obs, reward_sum, done_count)``, all on the device.
+    Returns ``(state, obs, reward_sum, done_count)``, all on the device;
+    ``state`` is the env family's state.
     """
     cfg, device = handle.cfg, handle.device
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
-    auto = make_autoreset_step(
-        cfg, handle.step, handle.reset_from_uniform, handle.reset_obs,
-        handle.n_uniform(cfg),
-    )
-    state = handle.reset(cfg, generator, num_envs, device)
-    obs = handle.reset_obs(cfg, state)
+    benv = BatchedEnv(handle, num_envs, **batch_options)
+    state, obs = benv.reset(seed)
     actions = torch.zeros((num_envs, cfg.action_dim), dtype=torch.float32, device=device)
     reward_sum = torch.zeros((), dtype=torch.float32, device=device)
     done_count = torch.zeros((), dtype=torch.int64, device=device)
     for _ in range(n_steps):
-        state, ts = auto(state, actions, generator)
+        state, ts = benv.step(state, actions)
         obs = ts.obs
         # in place: the accumulators belong to this loop alone
         reward_sum += ts.reward.sum()
         done_count += ts.done.sum()
-    return state, obs, reward_sum, done_count
+    return state.env, obs, reward_sum, done_count
 
 
-def throughput(handle: EnvHandle, num_envs: int, n_steps: int = 10_000, repeats: int = 3):
+def throughput(handle: EnvHandle, num_envs: int, n_steps: int = 10_000, repeats: int = 3,
+               **batch_options):
     """Env-steps/s of :func:`rollout`: one warm-up run, then the best of
     ``repeats`` timed runs, each ended by a device synchronize.
 
@@ -60,7 +58,7 @@ def throughput(handle: EnvHandle, num_envs: int, n_steps: int = 10_000, repeats:
     device = handle.device
 
     def run(seed):
-        out = rollout(handle, num_envs, n_steps, seed=seed)
+        out = rollout(handle, num_envs, n_steps, seed=seed, **batch_options)
         _sync(device)
         return float(out[2])  # reward_sum: the result is consumed
 
