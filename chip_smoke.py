@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — ``usv-simple`` and the collision-avoidance env
-``usv-asmc-ca-v0`` at 4096 lockstep envs, zero actions, auto-reset, obs
-consumed every step — through the entry points a user calls (``make``,
-``BatchedEnv``, ``rollout``, ``throughput``), after building the ray-cast
+Drives the port's main paths — ``usv-simple``, the collision-avoidance env
+``usv-asmc-ca-v0`` and the curved-path env ``usv-curved-aitsmc`` at 4096
+lockstep envs, zero actions, auto-reset, obs consumed every step, and the
+serving of a policy bundle over 4096 envs — through the entry points a user
+calls (``make``, ``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
+``load_policy``, ``batch_policy_metrics``), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -20,7 +22,7 @@ version on the card. Phases, each of which exits non-zero on failure:
    JAX suite);
 4. the ``usv-simple`` path: a small run on the card against the same run on
    the CPU (atol=1e-4), then ``rollout`` and ``throughput`` at 4096 envs x
-   1024 steps, with the kernel launched exactly once per step;
+   512 steps, with the kernel launched exactly once per step;
 5. one step's kernels and device time (torch.profiler), for the idle share;
 6. the hydrodynamic paths: each new id's ``BatchedEnv`` at 64 envs on the
    card against the CPU; the collision-avoidance path at 4096 envs (two
@@ -29,11 +31,25 @@ version on the card. Phases, each of which exits non-zero on failure:
    full-width reset, ``frame_stack=5`` with ``sanitize=True``; short
    full-width runs of ``usv-asmc-simple`` and ``usv-aitsmc-simple``; and the
    kernel against its plain version on the live states of the three paths;
-7. the kernel's device time (CUDA events around a replayed CUDA graph)
-   beside its plain version's and its bound (the bytes, or the operations
-   on the pairs this data needs, counted on the card), at the three shapes
-   the system launches, and with ``n_acc`` 1, 2 and 4, with no slot valid
-   and for an empty kernel of the same grid at the first.
+7. the curved path: ``usv-curved-aitsmc`` at 64 envs on the card against
+   the CPU, then at 4096 envs with one launch per step and none per reset,
+   its step anatomy and the kernel against its plain version on its live
+   state;
+8. the legacy ids (``usv-asmc-v0``, ``usv-pid-v0``, ``usv-asmc-ye-int-v0``):
+   card against CPU, short runs at 4096 envs, no kernel launch;
+9. policy serving: a 400x300 gSDE SAC actor (715 inputs: ``usv-simple``
+   with ``frame_stack=5``) and a 256x256 PPO actor-critic, weights from a
+   numpy seed carried through the flax-layout converter, saved and reloaded
+   as bundles; ``batch_policy_metrics`` at 4096 envs beside the zero-action
+   rate; the same bundle on the card against the CPU (first-step actions
+   within 1e-5, the same episode counts); the ``.npz`` export served with
+   numpy alone (within 1e-5); the actor's forward time in float32 and
+   bfloat16;
+10. the kernel's device time (CUDA events around a replayed CUDA graph)
+    beside its plain version's and its bound (the bytes, or the operations
+    on the pairs this data needs, counted on the card), at the three shapes
+    the system launches on live states, and with ``n_acc`` 1, 2 and 4, with
+    no slot valid and for an empty kernel of the same grid.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -47,6 +63,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -54,9 +71,14 @@ import numpy as np
 import torch
 
 NUM_ENVS = 4096
-N_STEPS = 1024
+N_STEPS = 512
 CA_STEPS = 64      # the collision-avoidance path's steps per run
 HYDRO_STEPS = 32   # steps per run of the two hydrodynamic simple ids
+CURVED_STEPS = 64  # the curved path's steps per run
+LEGACY_STEPS = 128  # steps per run of each legacy id
+SAC_STEPS = 128    # policy serving on usv-simple: steps per run
+PPO_STEPS = 32     # policy serving on usv-asmc-ca-v0: steps per run
+ACTION_ATOL = 1e-5  # the same bundle's actions, card against CPU and numpy
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -249,7 +271,7 @@ def check_tangency(device):
     print(f"  unfused, 0.1 mm: 0 flips; fused, 0.1 mm at d=100: {fused}/256 flip scenes")
 
 
-def check_batched_env_against_cpu(device, env_id, sensor_from):
+def check_batched_env_against_cpu(device, env_id, sensor_from, **overrides):
     """``BatchedEnv`` of ``env_id`` on the card and on the CPU, fed the same
     uniform blocks and actions (the CPU takes the plain ray-cast form, the
     card the kernel), with truncations every 8 steps so that resets run. The
@@ -260,15 +282,18 @@ def check_batched_env_against_cpu(device, env_id, sensor_from):
     ray may differ only where the two sides' float32 positions straddle a
     grazing tangency, the knife edge the tangency suite bounds, so at most 1
     ray in 10^4 may, the reward only in such rows, and the flags not at all.
-    Returns the largest non-sensor difference."""
+    ``overrides`` are the config fields that make episodes end within the
+    run (default: ``max_episode_steps=8``). Returns the largest non-sensor
+    difference."""
     from usv_tpu_torch.envs import make
     from usv_tpu_torch.vector import BatchedEnv
 
     B, T = 64, 24
     g = torch.Generator().manual_seed(11)
     sides = {}
+    overrides = overrides or {"max_episode_steps": 8}
     for side, dev in (("cpu", "cpu"), ("card", device)):
-        handle = make(env_id, device=dev, max_episode_steps=8)
+        handle = make(env_id, device=dev, **overrides)
         sides[side] = [BatchedEnv(handle, B), None, dev]
     n = handle.n_uniform(handle.cfg)
     u0 = torch.rand((B, n), generator=g)
@@ -277,7 +302,7 @@ def check_batched_env_against_cpu(device, env_id, sensor_from):
     flips, worst, dones = 0, 0.0, 0
     for t in range(T):
         u = torch.rand((B, n), generator=g)
-        a = torch.rand((B, 2), generator=g) * 2 - 1
+        a = torch.rand((B, handle.cfg.action_dim), generator=g) * 2 - 1
         out = {}
         for name, side in sides.items():
             side[1], out[name] = side[0].step(side[1], a.to(side[2]), uniform=u.to(side[2]))
@@ -355,6 +380,8 @@ def live_scene(env_id, cfg, state):
     """The ray-cast inputs a step of ``env_id`` builds from ``state``."""
     if env_id == "usv-asmc-ca-v0":
         pose, pad, rays = state.dyn.pose, cfg.boat_radius, cfg.sensor_num
+    elif env_id == "usv-curved-aitsmc":
+        pose, pad, rays = state.dyn.pose, 0.0, cfg.sensor_count
     else:
         state = getattr(state, "base", state)
         pose, pad, rays = state.position, 0.0, cfg.sensor_count
@@ -485,6 +512,291 @@ def hydro_paths(device, card, rc):
     return extra, max_err, cfg, bstate.env
 
 
+def curved_path(device, card, rc):
+    """Phase 7: ``usv-curved-aitsmc`` on the card. Returns the record's
+    ``curved_*`` keys, the kernel-vs-plain difference on the live state, and
+    the config and live state (for the kernel-time phase)."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.vector import BatchedEnv, BatchState, rollout, throughput
+
+    env_id = "usv-curved-aitsmc"
+    check_batched_env_against_cpu(device, env_id, sensor_from=9)
+    handle = make(env_id)
+    check(handle.device.type == "cuda", "make() did not default to the card")
+    cfg = handle.cfg
+    rc.counter.launches = 0
+    state, obs, reward_sum, done_count = rollout(handle, NUM_ENVS, CURVED_STEPS, seed=0)
+    out = throughput(handle, num_envs=NUM_ENVS, n_steps=CURVED_STEPS, repeats=REPEATS)
+    launches = rc.counter.launches
+    # the reset casts no ray: one launch per auto-reset step and none per reset
+    runs = 2 + REPEATS
+    check(launches == runs * CURVED_STEPS,
+          f"curved path: {launches} kernel launches, expected {runs * CURVED_STEPS}")
+    check(obs.shape == (NUM_ENVS, cfg.obs_dim), f"curved obs shape {tuple(obs.shape)}")
+    check(bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward_sum)), "curved: non-finite")
+    sensor = obs[:, 9:]
+    check(bool(((sensor >= 0) & (sensor <= 1)).all()), "curved sensor block outside [0, 1]")
+    check(bool((sensor < 1).any()), "curved: no ray sees an obstacle")
+    check(bool((state.path.x[:, 1:] > state.path.x[:, :-1]).all()), "curved: a path's x not increasing")
+    ms = out["seconds"] / CURVED_STEPS * 1e3
+    print(f"  {env_id}: {out['steps_per_second']:.1f} env-steps/s, {ms:.4f} ms per step "
+          f"({NUM_ENVS} envs x {CURVED_STEPS} steps, best of {REPEATS}: {out['seconds']:.4f} s) on {card}")
+    print(f"  kernel launches {launches} = {runs} runs x {CURVED_STEPS} steps; reward sum "
+          f"{float(reward_sum):.6g}, episode ends {int(done_count)}", flush=True)
+    max_err = check_kernel_on_live_state(env_id, cfg, state)
+
+    benv = BatchedEnv(handle, NUM_ENVS)
+    benv.generator = torch.Generator(device=device).manual_seed(1)
+    anatomy = step_anatomy(benv, BatchState(env=state, frames=None), ms)
+
+    # a driven run: full-throttle setpoints move the boats along their paths,
+    # so arrivals and resets happen and rays meet obstacles at every range
+    benv = BatchedEnv(handle, NUM_ENVS, frame_stack=5, sanitize=True)
+    bstate, _ = benv.reset(3)
+    actions = torch.tensor([1.0, 0.0], device=device).expand(NUM_ENVS, 2)
+    rc.counter.launches = 0
+    dones = torch.zeros((), dtype=torch.int64, device=device)
+    for _ in range(CURVED_STEPS):
+        bstate, ts = benv.step(bstate, actions)
+        dones += ts.done.sum()
+    check(rc.counter.launches == CURVED_STEPS, f"driven curved run: {rc.counter.launches} launches")
+    check(bool(torch.isfinite(bstate.frames).all()) and not bool(ts.info["diverged"].any()),
+          "driven curved run: non-finite frames or a diverged env")
+    moved = float(bstate.env.dyn.pose[:, 0].mean())
+    check(moved > 0.05, f"driven curved run: mean x {moved}, the boats did not move")
+    max_err = max(max_err, check_kernel_on_live_state(env_id, cfg, bstate.env))
+    print(f"  driven run (setpoint u=1, frame_stack=5, sanitize=True): mean x {moved:.3f} m after "
+          f"{CURVED_STEPS} steps, {int(dones)} episode ends", flush=True)
+
+    extra = {"curved_launches": launches, "curved_steps_run": runs * CURVED_STEPS,
+             "curved_env_steps_per_s": out["steps_per_second"], "curved_ms_per_step": ms,
+             "curved_step_anatomy": anatomy}
+    return extra, max_err, cfg, state
+
+
+def legacy_paths(device, card, rc):
+    """Phase 8: the three legacy ids. They cast no ray: no launch at all."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.vector import BatchedEnv, BatchState, rollout, throughput
+
+    extra = {}
+    for env_id in ("usv-asmc-v0", "usv-pid-v0", "usv-asmc-ye-int-v0"):
+        # no TimeLimit in these envs: a cross-track bound of 1 m ends episodes
+        check_batched_env_against_cpu(device, env_id, sensor_from=6, max_ye=1.0)
+        handle = make(env_id)
+        rc.counter.launches = 0
+        state, obs, reward_sum, done_count = rollout(handle, NUM_ENVS, LEGACY_STEPS, seed=0)
+        out = throughput(handle, num_envs=NUM_ENVS, n_steps=LEGACY_STEPS, repeats=2)
+        check(rc.counter.launches == 0, f"{env_id}: {rc.counter.launches} kernel launches, expected 0")
+        check(obs.shape == (NUM_ENVS, 6) and bool(torch.isfinite(obs).all())
+              and bool(torch.isfinite(reward_sum)), f"{env_id}: bad obs or reward")
+        ms = out["seconds"] / LEGACY_STEPS * 1e3
+        print(f"  {env_id}: {out['steps_per_second']:.1f} env-steps/s, {ms:.4f} ms per step "
+              f"({NUM_ENVS} envs x {LEGACY_STEPS} steps, best of 2) on {card}; 0 kernel launches; "
+              f"reward sum {float(reward_sum):.6g}, episode ends {int(done_count)}", flush=True)
+        benv = BatchedEnv(handle, NUM_ENVS)
+        benv.generator = torch.Generator(device=device).manual_seed(1)
+        anatomy = step_anatomy(benv, BatchState(env=state, frames=None), ms)
+        key = "legacy_" + env_id[4:-3].replace("-", "_")
+        extra.update({f"{key}_env_steps_per_s": out["steps_per_second"], f"{key}_ms_per_step": ms,
+                      f"{key}_aten_calls": anatomy["aten_calls"]})
+    return extra
+
+
+def seeded_flax_params(rng, layout):
+    """Parameters in the JAX package's export layout ('/'-joined flax paths
+    -> arrays) from a numpy generator: LeCun-normal kernels, small biases;
+    ``layout`` maps a path to a shape, or to a constant for a bare parameter."""
+    arrays = {}
+    for path, spec in layout.items():
+        if path.endswith("/kernel"):
+            arrays[path] = (rng.standard_normal(spec) / math.sqrt(spec[0])).astype(np.float32)
+        elif path.endswith("/bias"):
+            arrays[path] = (0.1 * rng.standard_normal(spec)).astype(np.float32)
+        else:
+            shape, value = spec
+            arrays[path] = np.full(shape, value, np.float32)
+    return arrays
+
+
+def mlp_layout(prefix, sizes):
+    out = {}
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        out[f"{prefix}/dense_{i}/kernel"] = (a, b)
+        out[f"{prefix}/dense_{i}/bias"] = (b,)
+    return out
+
+
+def time_policy_rollout(handle, policy_fn, n_steps, frame_stack, seed):
+    """Seconds of one ``run_batch`` of ``n_steps`` at 4096 envs between
+    device synchronizes, the reset apart; the sums are read back after."""
+    from usv_tpu_torch.train.evaluate import metrics_from_sums, run_batch
+    from usv_tpu_torch.vector import BatchedEnv
+
+    benv = BatchedEnv(handle, NUM_ENVS, frame_stack=frame_stack)
+    state, _ = benv.reset(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, sums = run_batch(benv, state, policy_fn, n_steps)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return seconds, metrics_from_sums(sums, n_steps, NUM_ENVS)
+
+
+def serve_bundle(device, card, rc, label, env_id, module, meta, n_steps, launches_per_run, tmp,
+                 **overrides):
+    """Save ``module`` as a bundle, reload it on the card and on the CPU, hold
+    the two and the numpy export against each other at 64 envs, then serve it
+    over 4096 envs of ``env_id`` beside the zero-action policy."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train import policy as tp
+    from usv_tpu_torch.train.evaluate import batch_policy_metrics, metrics_from_sums, run_batch
+    from usv_tpu_torch.utils.numpy_policy import load_numpy_policy
+    from usv_tpu_torch.vector import BatchedEnv
+
+    bundle = tp.save_policy(meta, module, f"{tmp}/{label}")
+    policy = tp.load_policy(bundle)
+    check(policy.device.type == "cuda", "load_policy() did not default to the card")
+    cpu_policy = tp.load_policy(bundle, device="cpu")
+    numpy_policy = load_numpy_policy(tp.export_numpy_policy(bundle))
+    stack = policy.frame_stack
+
+    # the same bundle on the card and on the CPU: 64 envs from one uniform
+    # block, episodes cut short so that they end within the run
+    B, T = 64, 8
+    g = torch.Generator().manual_seed(5)
+    sides = {}
+    for name, dev, pol in (("cpu", "cpu", cpu_policy), ("card", device, policy)):
+        h = make(env_id, device=dev, **overrides)
+        benv = BatchedEnv(h, B, frame_stack=stack)
+        sides[name] = (benv, dev, pol)
+    n = h.n_uniform(h.cfg)
+    u0 = torch.rand((B, n), generator=g)
+    blocks = [torch.rand((B, n), generator=g) for _ in range(T)]
+    results = {}
+    for name, (benv, dev, pol) in sides.items():
+        state, _ = benv.reset(0, uniform=u0.to(dev))
+        first = pol(state.stacked_obs)
+        _, sums = run_batch(benv, state, pol, T, uniforms=[b.to(dev) for b in blocks])
+        results[name] = (first.cpu(), state.stacked_obs.cpu(), metrics_from_sums(sums, T, B))
+    act_err = float((results["card"][0] - results["cpu"][0]).abs().max())
+    check(act_err <= ACTION_ATOL, f"{label}: first-step actions, card vs CPU, differ by {act_err}")
+    mc, mk = results["cpu"][2], results["card"][2]
+    check(mc["episodes_finished"] == mk["episodes_finished"] and mc["terminations"] == mk["terminations"],
+          f"{label}: card {mk} vs CPU {mc}")
+    check(mc["episodes_finished"] >= B, f"{label}: only {mc['episodes_finished']} episode ends")
+    np_err = float(np.abs(numpy_policy(results["card"][1].numpy()) - results["card"][0].numpy()).max())
+    check(np_err <= ACTION_ATOL, f"{label}: numpy export vs module differ by {np_err}")
+    print(f"  {label}: bundle on the card vs the CPU, {B} envs: first-step actions differ by "
+          f"{act_err:.3g} (atol {ACTION_ATOL}); {T} steps: episodes finished "
+          f"{mk['episodes_finished']} = {mc['episodes_finished']}, terminations {mk['terminations']} "
+          f"= {mc['terminations']}; numpy export vs module {np_err:.3g}", flush=True)
+
+    # served at full width through the entry point
+    handle = make(env_id)
+    rc.counter.launches = 0
+    metrics = batch_policy_metrics(handle, policy, n_steps=n_steps, num_envs=NUM_ENVS, seed=0,
+                                   frame_stack=stack)
+    check(rc.counter.launches == launches_per_run,
+          f"{label}: {rc.counter.launches} kernel launches, expected {launches_per_run}")
+    check(math.isfinite(metrics["reward_per_step"]), f"{label}: reward {metrics['reward_per_step']}")
+    print(f"  {label}: batch_policy_metrics, {NUM_ENVS} envs x {n_steps} steps, "
+          f"{rc.counter.launches} kernel launches: {json.dumps(metrics)}", flush=True)
+
+    # the policy's rate beside the zero-action rate, in turns and back
+    act_dim = handle.cfg.action_dim
+
+    def zero_policy(obs):
+        return torch.zeros((obs.shape[0], act_dim), device=device)
+
+    times = {"policy": [], "zero": []}
+    for i, name in enumerate(("policy", "zero", "zero", "policy")):
+        seconds, _ = time_policy_rollout(handle, policy if name == "policy" else zero_policy,
+                                         n_steps, stack, seed=10 + i)
+        times[name].append(seconds)
+    rate = {k: NUM_ENVS * n_steps / min(v) for k, v in times.items()}
+    print(f"  {label}: {rate['policy']:.1f} env-steps/s with the policy, {rate['zero']:.1f} with zero "
+          f"actions (frame_stack={stack}, flag sums; best of 2 each, in turns) on {card}", flush=True)
+    return metrics, rate, act_err, np_err
+
+
+def policy_serving(device, card, rc):
+    """Phase 9: the serving path at full width. Returns the record's
+    ``serving_*`` keys."""
+    from usv_tpu_torch import convert
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.models import PpoActorCritic, SquashedGaussianActor
+    from usv_tpu_torch.timing import time_cuda, time_device
+    from usv_tpu_torch.train.policy import module_meta
+
+    rng = np.random.default_rng(0)
+    extra = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # SAC actor at the JAX defaults: 400x300, gSDE, frame_stack 5
+        cfg = make("usv-simple").cfg
+        obs_dim = 5 * cfg.obs_dim
+        layout = {**mlp_layout("params/MLP_0", (obs_dim, 400, 300)),
+                  "params/mean/kernel": (300, 2), "params/mean/bias": (2,),
+                  "params/log_std_sde": ((300, 2), -3.0)}
+        arrays = seeded_flax_params(rng, layout)
+        actor = SquashedGaussianActor(obs_dim, 2, (400, 300), log_std_init=-3.0,
+                                      action_low=cfg.action_low, action_high=cfg.action_high,
+                                      use_sde=True)
+        actor.load_state_dict(convert.state_dict_from_flax(arrays), strict=True)
+        n_params = sum(p.numel() for p in actor.parameters())
+        print(f"  SAC actor {obs_dim}-400-300-2, gSDE, {n_params} parameters from a numpy seed, "
+              "through the flax-layout converter")
+        metrics, rate, act_err, np_err = serve_bundle(
+            device, card, rc, "sac on usv-simple", "usv-simple", actor, module_meta(actor, 5),
+            SAC_STEPS, SAC_STEPS, tmp, max_episode_steps=4)
+        extra.update(serving_sac_metrics=metrics, serving_sac_env_steps_per_s=rate["policy"],
+                     serving_sac_zero_action_env_steps_per_s=rate["zero"],
+                     serving_sac_card_vs_cpu_action_err=act_err, serving_sac_numpy_err=np_err)
+
+        # the actor's forward alone, float32 and with a bfloat16 trunk
+        obs = torch.randn((NUM_ENVS, obs_dim), device=device)
+        for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            net = SquashedGaussianActor(obs_dim, 2, (400, 300), use_sde=True, compute_dtype=dtype)
+            net.load_state_dict(actor.state_dict())
+            net = net.to(device).eval()
+            with torch.no_grad():
+                out = net.deterministic(obs)
+                eager_ms = time_cuda(lambda: net.deterministic(obs), 200)
+                graph_ms = time_device(lambda: net.deterministic(obs))
+            check(bool(torch.isfinite(out).all()), f"actor forward in {name}: non-finite")
+            if dtype is torch.float32:
+                ref = out
+            err = float((out - ref).abs().max())
+            print(f"  actor.deterministic at batch {NUM_ENVS}, {name}: {eager_ms:.4f} ms per eager "
+                  f"call (CUDA events, 200 calls), {graph_ms:.4f} ms in a replayed CUDA graph; "
+                  f"max |difference to float32| {err:.3g}", flush=True)
+            extra[f"serving_actor_forward_{name}_ms"] = eager_ms
+            extra[f"serving_actor_forward_{name}_graph_ms"] = graph_ms
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for float32 products")
+
+        # PPO actor-critic at the JAX defaults on the collision-avoidance env
+        cfg = make("usv-asmc-ca-v0").cfg
+        obs_dim = 5 * cfg.obs_dim
+        layout = {**mlp_layout("params/pi_trunk", (obs_dim, 256, 256)),
+                  **mlp_layout("params/vf_trunk", (obs_dim, 256, 256)),
+                  "params/pi_mean/kernel": (256, 2), "params/pi_mean/bias": (2,),
+                  "params/vf_out/kernel": (256, 1), "params/vf_out/bias": (1,),
+                  "params/log_std": ((2,), -2.0)}
+        ppo = PpoActorCritic(obs_dim, 2)
+        ppo.load_state_dict(convert.state_dict_from_flax(seeded_flax_params(rng, layout)),
+                            strict=True)
+        meta = module_meta(ppo, 5, cfg.action_low, cfg.action_high)
+        metrics, rate, act_err, np_err = serve_bundle(
+            device, card, rc, "ppo on usv-asmc-ca-v0", "usv-asmc-ca-v0", ppo, meta,
+            PPO_STEPS, 1 + 2 * PPO_STEPS, tmp, max_episode_steps=4)
+        check("info_arrived" in metrics and "info_collision" in metrics,
+              f"CA metrics lack the outcome flags: {sorted(metrics)}")
+        extra.update(serving_ppo_metrics=metrics, serving_ppo_env_steps_per_s=rate["policy"],
+                     serving_ppo_zero_action_env_steps_per_s=rate["zero"],
+                     serving_ppo_card_vs_cpu_action_err=act_err, serving_ppo_numpy_err=np_err)
+    return extra
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -563,6 +875,16 @@ def main():
     hydro_record, live_err, ca_cfg, ca_state = hydro_paths(device, card, rc)
     max_err = max(max_err, live_err)
 
+    phase("curved path: usv-curved-aitsmc")
+    curved_record, live_err, curved_cfg, curved_state = curved_path(device, card, rc)
+    max_err = max(max_err, live_err)
+
+    phase("legacy ids: usv-asmc-v0, usv-pid-v0, usv-asmc-ye-int-v0")
+    legacy_record = legacy_paths(device, card, rc)
+
+    phase("policy serving")
+    serving_record = policy_serving(device, card, rc)
+
     phase("kernel time")
 
     def time_shape(label, args, bd, mask, n_accs=(1,)):
@@ -621,6 +943,13 @@ def main():
                                                            ca_cfg.obstacle_cap, ca_cfg.sensor_span))
     other_rows[0]["empty_kernel_ms"] = ca_empty_ms
     print(f"  an empty kernel of the CA launch's grid {ca_empty_ms:.5f} ms")
+    # the curved env's shape on its own live state
+    cv_args, cv_bd = live_scene("usv-curved-aitsmc", curved_cfg, curved_state)
+    curved_row = time_shape("curved env, its run's last state,", cv_args, cv_bd, curved_state.obs_mask)
+    curved_row["empty_kernel_ms"] = time_device(lambda: rc.launch_empty_grid(
+        NUM_ENVS, curved_cfg.sensor_count, curved_cfg.obstacle_cap, curved_cfg.sensor_span))
+    print(f"  an empty kernel of the curved launch's grid {curved_row['empty_kernel_ms']:.5f} ms")
+    other_rows.append(curved_row)
     for label, R, K in (("CA env's shape, simple reset's scene,", 16, 16),
                         ("curved env's shape, simple reset's scene,", 32, 16)):
         other = SimpleEnvConfig(sensor_count=R, obstacle_cap=K)
@@ -654,6 +983,13 @@ def main():
         "env_steps_per_s": out["steps_per_second"],
         "other_shapes": other_rows,
         **hydro_record,
+        **curved_record,
+        "curved_kernel_ms": curved_row["ms"],
+        "curved_kernel_bound_ms": curved_row["bound_ms"],
+        "curved_kernel_plain_ms": curved_row["plain_ms"],
+        "curved_empty_kernel_ms": curved_row["empty_kernel_ms"],
+        **legacy_record,
+        **serving_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

@@ -309,16 +309,58 @@ def test_rollout_runs_the_new_ids_on_cpu(env_id):
 
 
 def test_registry_lists_the_four_ids():
-    assert tenvs.registered_ids() == sorted(IDS)
-    for env_id in IDS:
+    """Named for the four ids it first held: it holds every registered id."""
+    assert set(IDS) <= set(tenvs.registered_ids())
+    for env_id in tenvs.registered_ids():
         h = tenvs.make(env_id, device="cpu")
         assert h.device == CPU and h.env_id == env_id
-        assert (h.reset_info is None) == (env_id == "usv-asmc-ca-v0")
         jh = jenvs.make(env_id)
         assert (jh.reset_info is None) == (h.reset_info is None)
-        assert h.cfg.obs_dim == jh.cfg.obs_dim
+        assert h.cfg.obs_dim == jh.cfg.obs_dim and h.cfg.action_dim == jh.cfg.action_dim
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="CUDA"):
                 tenvs.make(env_id)
     with pytest.raises(KeyError):
-        tenvs.make("usv-curved-aitsmc", device="cpu")
+        tenvs.make("usv-no-such-env", device="cpu")
+
+
+def test_registry_equals_the_jax_registry():
+    assert tenvs.registered_ids() == jenvs.registry.registered_ids()
+    assert len(tenvs.registered_ids()) == 8
+
+
+# config fields that end episodes within a few steps: the legacy ids have no
+# time limit, a cross-track bound of 1 m ends most of their episodes at once
+SHORT_EPISODES = {env_id: ({"max_ye": 1.0} if env_id.endswith("-v0") and "ca" not in env_id
+                           else {"max_episode_steps": 3})
+                  for env_id in ["usv-simple", "usv-asmc-simple", "usv-aitsmc-simple",
+                                 "usv-asmc-ca-v0", "usv-curved-aitsmc", "usv-asmc-v0",
+                                 "usv-pid-v0", "usv-asmc-ye-int-v0"]}
+
+
+@pytest.mark.parametrize("reset_pool", [0, 2], ids=["full_width", "pooled"])
+@pytest.mark.parametrize("env_id", sorted(SHORT_EPISODES))
+def test_every_id_runs_through_batched_env(env_id, reset_pool):
+    """Full-width and pooled auto-reset with ``frame_stack=5`` and
+    ``sanitize=True`` over each id's (nested) state."""
+    handle = tenvs.make(env_id, device="cpu", **SHORT_EPISODES[env_id])
+    n, d, a = 6, handle.cfg.obs_dim, handle.cfg.action_dim
+    benv = BatchedEnv(handle, n, frame_stack=5, sanitize=True, reset_pool=reset_pool)
+    state, obs = benv.reset(4)
+    assert obs.shape == (n, d) and state.stacked_obs.shape == (n, 5 * d)
+    shapes = [tuple(leaf.shape) for leaf in tree_leaves(state.env)]
+    assert all(shape[0] == n for shape in shapes)
+    dones = 0
+    rng = np.random.default_rng(0)
+    for _ in range(7):
+        action = torch.from_numpy(rng.uniform(-1, 1, (n, a)).astype(np.float32))
+        state, ts = benv.step(state, action)
+        dones += int(ts.done.sum())
+        assert ts.obs.shape == (n, d) and torch.isfinite(ts.obs).all()
+        assert not ts.info["diverged"].any()
+        assert ts.info["terminal_observation"].shape == (n, d)
+        # the newest frame is the step's obs; a done row's stack is refilled
+        assert torch.equal(state.frames[:, -1], ts.obs)
+        assert torch.equal(state.frames[ts.done, 0], ts.obs[ts.done])
+    assert [tuple(leaf.shape) for leaf in tree_leaves(state.env)] == shapes
+    assert dones >= n  # episodes ended and were replaced

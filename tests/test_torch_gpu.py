@@ -15,7 +15,12 @@ CUDA. Run them on a machine with one:
 * Each hydrodynamic id's ``BatchedEnv`` on the card: the launch counter moves
   as the step structure predicts (the collision-avoidance reset holds a whole
   step), the plain versions never run, and ``raycast_backend="xla"`` on the
-  card agrees with the kernel.
+  card agrees with the kernel. The curved id is one of them (one launch per
+  step, none per reset); the legacy ids launch nothing.
+* The kernel against its plain version on live curved states, first-hit and
+  true-min: bit for bit.
+* A policy bundle on the card against the same bundle on the CPU (actions
+  within 1e-5), and ``batch_policy_metrics`` on the card.
 """
 
 import itertools
@@ -328,7 +333,7 @@ def test_rollout_on_card_launches_once_per_step(cuda):
 # launches per BatchedEnv.reset and per auto-reset step: the CA reset holds a
 # whole step (its bootstrap), the simple families' resets cast no ray
 _NEW_IDS = {"usv-asmc-ca-v0": (1, 2, 7), "usv-asmc-simple": (0, 1, 15),
-            "usv-aitsmc-simple": (0, 1, 15)}
+            "usv-aitsmc-simple": (0, 1, 15), "usv-curved-aitsmc": (0, 1, 9)}
 
 
 @pytest.mark.parametrize("reset_pool", [0, 4])
@@ -396,3 +401,74 @@ def test_empty_grid_launch_is_not_counted(cuda):
     launch_empty_grid(4096, 16, 16)
     torch.cuda.synchronize()
     assert counter.launches == before
+
+
+@pytest.mark.parametrize("first_hit", [True, False], ids=["first_hit", "true_min"])
+def test_kernel_matches_plain_on_live_curved_states(cuda, first_hit):
+    """The curved path's own launch: boats driven along their PCHIP paths
+    past the obstacles placed on them, the kernel held against its plain
+    version on the state each step leaves, bit for bit."""
+    from usv_tpu_torch.vector import BatchedEnv
+
+    h = make("usv-curved-aitsmc", strict_compat_raycast=first_hit)
+    cfg = h.cfg
+    benv = BatchedEnv(h, 512)
+    state, _ = benv.reset(7)
+    actions = torch.tensor([1.0, 0.1], device=cuda).expand(512, 2)
+    hits = 0
+    for t in range(40):
+        before = counter.launches
+        state, ts = benv.step(state, actions)
+        assert counter.launches == before + 1
+        if t % 8 != 7:
+            continue
+        s = state.env
+        n = s.obs_xy - s.dyn.pose[:, None, :2]
+        boundary = torch.hypot(n[..., 0], n[..., 1]) - s.obs_r
+        args = (s.dyn.pose, s.obs_xy, s.obs_r, s.obs_mask, cfg.sensor_count,
+                cfg.sensor_max_range, cfg.sensor_span)
+        got = raycast_cuda(*args, boundary_distance=boundary, first_hit=first_hit)
+        want = raycast_cuda_reference(*args, boundary_distance=boundary, first_hit=first_hit)
+        assert torch.equal(got, want)
+        hits += int((got < cfg.sensor_max_range).sum())
+    assert hits > 0 and float(state.env.dyn.pose[:, 0].mean()) > 0.05
+
+
+@pytest.mark.parametrize("env_id", ["usv-asmc-v0", "usv-pid-v0", "usv-asmc-ye-int-v0"])
+def test_legacy_ids_on_card_launch_nothing(cuda, env_id):
+    from usv_tpu_torch.vector import BatchedEnv
+
+    h = make(env_id, max_ye=1.0)  # a tight cross-track bound ends episodes at once
+    benv = BatchedEnv(h, 64, frame_stack=2, sanitize=True)
+    before = counter.launches
+    state, obs = benv.reset(0)
+    dones = 0
+    for _ in range(4):
+        state, ts = benv.step(state, torch.zeros((64, 1), device=cuda))
+        dones += int(ts.done.sum())
+    assert counter.launches == before
+    assert ts.obs.is_cuda and ts.obs.shape == (64, 6) and torch.isfinite(ts.obs).all()
+    assert dones > 0 and not ts.truncated.any()
+
+
+def test_policy_bundle_on_card_matches_cpu(cuda, tmp_path):
+    from usv_tpu_torch.models import SquashedGaussianActor
+    from usv_tpu_torch.train.evaluate import batch_policy_metrics
+    from usv_tpu_torch.train.policy import load_policy, module_meta, save_policy
+
+    h = make("usv-curved-aitsmc", max_episode_steps=6)
+    obs_dim = 5 * h.cfg.obs_dim
+    torch.manual_seed(0)
+    actor = SquashedGaussianActor(obs_dim, 2, (400, 300), use_sde=True)
+    bundle = save_policy(module_meta(actor, 5), actor, tmp_path / "bundle")
+    on_card, on_cpu = load_policy(bundle), load_policy(bundle, device="cpu")
+    assert on_card.device.type == "cuda"
+    obs = torch.randn((256, obs_dim), generator=torch.Generator().manual_seed(1))
+    got = on_card(obs.to(cuda))
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), on_cpu(obs), atol=1e-5, rtol=0)
+    before = counter.launches
+    metrics = batch_policy_metrics(h, on_card, n_steps=13, num_envs=128, seed=0, frame_stack=5)
+    assert counter.launches == before + 13
+    assert metrics["episodes_finished"] >= 2 * 128 and math.isfinite(metrics["reward_per_step"])
+    assert "info_arrived" in metrics and "info_collision" in metrics

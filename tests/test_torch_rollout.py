@@ -108,7 +108,7 @@ def test_make_defaults_to_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         make("usv-simple")
     with pytest.raises(KeyError):
-        make("usv-curved-aitsmc", device="cpu")  # not ported yet
+        make("usv-no-such-env", device="cpu")  # an id no package registers
 
 
 _HYGIENE = r"""

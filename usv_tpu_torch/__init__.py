@@ -1,14 +1,20 @@
 """usv_tpu_torch — the PyTorch/CUDA port of ``usv_tpu``, for NVIDIA Hopper.
 
-This package runs four env ids end to end on an H100 (``usv-simple``,
-``usv-asmc-simple``, ``usv-aitsmc-simple`` and the collision-avoidance env
-``usv-asmc-ca-v0``) through ``BatchedEnv`` and the auto-reset rollout, with
-the Fossen vehicle physics and the ASMC, AITSMC and PID controllers under
-them. The ray-cast sensor that every one of them reaches is a CUDA kernel
+This package runs all eight env ids end to end on an H100 (``usv-simple``,
+``usv-asmc-simple``, ``usv-aitsmc-simple``, the collision-avoidance env
+``usv-asmc-ca-v0``, the curved-path env ``usv-curved-aitsmc`` and the legacy
+``usv-asmc-v0``, ``usv-pid-v0`` and ``usv-asmc-ye-int-v0``) through
+``BatchedEnv`` and the auto-reset rollout, with the Fossen vehicle physics
+and the ASMC, AITSMC and PID controllers under them, and serves a trained
+policy over them: the actor and critic networks, policy bundles (also those
+exported by the JAX package), the batched evaluation and its CLI. The
+ray-cast sensor that every env with a sensor reaches is a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/raycast.cu``); the rest is eager
-tensor ops. Subpackages mirror ``usv_tpu`` module for module so a reader
-finds each counterpart at the same path. Not ported yet: the curved and
-legacy env ids, the learners, the data-parallel layer, the gym adapters.
+tensor ops and ``nn.Linear``. Subpackages mirror ``usv_tpu`` module for
+module so a reader finds each counterpart at the same path. Not ported yet:
+the learners (buffer, PPO, SAC, checkpoints, population, the train CLIs),
+the data-parallel layer, the gym adapters and the host-side video and plot
+utilities.
 
 Rules of the port
 -----------------
@@ -19,8 +25,8 @@ Rules of the port
   import runs the ``usv_tpu`` package). What the port needs from such a
   module it keeps its own copy of. Only the tests import both packages.
 * Entry points run on the card: ``make(..., device=None)``, ``BatchedEnv``,
-  ``rollout`` and ``throughput`` use ``torch.device("cuda")`` and raise when
-  CUDA is absent.
+  ``rollout``, ``throughput``, ``load_policy`` and ``run_eval`` use
+  ``torch.device("cuda")`` and raise when CUDA is absent.
   The CPU is used only when the caller asks for it (the tests do).
 * Batch-first tensors: an env state is a dataclass of ``(B, ...)`` tensors
   (or of further such dataclasses: ``base``, ``ctrl``, ``dyn``); JAX's
@@ -41,10 +47,12 @@ core    : angle/geometry math
 physics : vehicle coefficients, Fossen 3-DOF dynamics
 control : ASMC, AITSMC and PID controllers, the substep runner
 ops     : the ray-cast sensor (plain torch form, CUDA kernel, dispatch)
-envs    : the four functional env cores, auto-reset (full, pooled), registry
+envs    : the eight functional env cores, auto-reset (full, pooled), registry
 vector  : ``BatchedEnv``, the frame stack, the rollout and throughput protocol
-utils   : numerical guards
-convert : carrying JAX states (as numpy arrays) across to the port
+models  : MLP, SAC actor and twin critic, PPO actor-critic, gSDE state
+train   : policy bundles, the batched evaluation, ``run_eval``, metric logging
+utils   : numerical guards, PCHIP path generation, the numpy-only policy
+convert : carrying JAX states and flax weights (as numpy arrays) across
 """
 
 __version__ = "0.1.0"

@@ -3,9 +3,10 @@
 ``make(env_id, device=None, **overrides)`` returns an :class:`EnvHandle`
 bound to a device: the CUDA card unless the caller names another one. Each
 entry bundles the config class and the batch-first pure functions of one env
-family. Registered: ``usv-simple``, ``usv-asmc-simple``, ``usv-aitsmc-simple``
-and ``usv-asmc-ca-v0``; the JAX package's curved and legacy ids are not
-ported yet.
+family. Registered: every id of the JAX package — ``usv-simple``,
+``usv-asmc-simple``, ``usv-aitsmc-simple``, ``usv-asmc-ca-v0``,
+``usv-curved-aitsmc`` and the three legacy ids ``usv-asmc-v0``, ``usv-pid-v0``
+and ``usv-asmc-ye-int-v0``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from usv_tpu_torch.envs import asmc_ca, simple, simple_aitsmc, simple_asmc
+from usv_tpu_torch.envs import asmc_ca, curved, legacy, simple, simple_aitsmc, simple_asmc
 
 
 class EnvHandle(NamedTuple):
@@ -43,11 +44,28 @@ def _entry(module, config_cls, reset_info=True):
     )
 
 
+def _legacy_entry(name, config_cls):
+    """One of the three legacy ids: ``legacy.<function>_<name>``."""
+    return dict(
+        config_cls=config_cls,
+        reset=getattr(legacy, f"reset_{name}"),
+        reset_from_uniform=getattr(legacy, f"reset_from_uniform_{name}"),
+        n_uniform=legacy.n_uniform,
+        step=getattr(legacy, f"step_{name}"),
+        reset_obs=getattr(legacy, f"reset_obs_{name}"),
+        reset_info=None,
+    )
+
+
 _REGISTRY = {
     "usv-simple": _entry(simple, simple.SimpleEnvConfig),
     "usv-asmc-simple": _entry(simple_asmc, simple_asmc.SimpleAsmcEnvConfig),
     "usv-aitsmc-simple": _entry(simple_aitsmc, simple_aitsmc.SimpleAitsmcEnvConfig),
     "usv-asmc-ca-v0": _entry(asmc_ca, asmc_ca.CaEnvConfig, reset_info=False),
+    "usv-curved-aitsmc": _entry(curved, curved.CurvedEnvConfig, reset_info=False),
+    "usv-asmc-v0": _legacy_entry("asmc", legacy.LegacyAsmcConfig),
+    "usv-pid-v0": _legacy_entry("pid", legacy.LegacyPidConfig),
+    "usv-asmc-ye-int-v0": _legacy_entry("ye_int", legacy.LegacyYeIntConfig),
 }
 
 
