@@ -4,10 +4,12 @@
 
 Drives the port's main paths — ``usv-simple``, the collision-avoidance env
 ``usv-asmc-ca-v0`` and the curved-path env ``usv-curved-aitsmc`` at 4096
-lockstep envs, zero actions, auto-reset, obs consumed every step, and the
-serving of a policy bundle over 4096 envs — through the entry points a user
-calls (``make``, ``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
-``load_policy``, ``batch_policy_metrics``), after building the ray-cast
+lockstep envs, zero actions, auto-reset, obs consumed every step, the
+serving of a policy bundle over 4096 envs, and SAC and PPO training at the
+at-scale recipes' widths — through the entry points a user calls (``make``,
+``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
+``load_policy``, ``batch_policy_metrics``, ``run_sac.main``,
+``run_ppo.main``), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -45,11 +47,34 @@ version on the card. Phases, each of which exits non-zero on failure:
    within 1e-5, the same episode counts); the ``.npz`` export served with
    numpy alone (within 1e-5); the actor's forward time in float32 and
    bfloat16;
-10. the kernel's device time (CUDA events around a replayed CUDA graph)
+10. SAC training: ``run_sac.main`` with ``--recipe at-scale`` on
+    ``usv-simple`` at full width (1024 envs, 64 collect steps and 16 updates
+    of batch 1024 a round, 400x300 networks, gSDE, frame_stack 5, the
+    default buffer of 458,752 rows on the card), 5 rounds with evals, then
+    the kernel against its plain version on the learner's live env state
+    (B=1024 R=128 K=32), the bundles ``policy`` and ``policy_best`` loaded
+    and acting, the recorded in-run eval replayed, ``--resume`` for one more
+    round against the run continued in memory (the difference reported;
+    the resumed leg saves a light checkpoint), and the anatomy of a collect
+    step and an update (CUDA events, torch.profiler): one kernel launch per
+    collect step, none per update;
+11. PPO training: ``run_ppo.main`` with ``--recipe at-scale`` on
+    ``usv-asmc-ca-v0`` at full width (256 envs, minibatch 2048, 256x256,
+    gSDE, frame_stack 5), its depth cut to ``--n-steps`` 64 and two
+    iterations; the kernel against its plain version on the learner's live
+    env state (B=256 R=16 K=16), the bundles, the replay, and the anatomy
+    of a collect step (two launches) and a minibatch step (none);
+12. one SAC update and one PPO minibatch step from one state and one set of
+    draws on the card and on the CPU: gradients within 1e-4 of the largest
+    entry, parameters after the step within 2 x lr;
+13. the kernel's device time (CUDA events around a replayed CUDA graph)
     beside its plain version's and its bound (the bytes, or the operations
-    on the pairs this data needs, counted on the card), at the three shapes
-    the system launches on live states, and with ``n_acc`` 1, 2 and 4, with
-    no slot valid and for an empty kernel of the same grid.
+    on the pairs this data needs, counted on the card), at the shapes the
+    system launches on live states (the three env paths' and the two
+    learners'), and with ``n_acc`` 1, 2 and 4, with no slot valid and for
+    an empty kernel of the same grid.
+
+Every phase heading prints the seconds since the script started.
 
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -58,9 +83,11 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -79,6 +106,11 @@ LEGACY_STEPS = 128  # steps per run of each legacy id
 SAC_STEPS = 128    # policy serving on usv-simple: steps per run
 PPO_STEPS = 32     # policy serving on usv-asmc-ca-v0: steps per run
 ACTION_ATOL = 1e-5  # the same bundle's actions, card against CPU and numpy
+SAC_ROUNDS = 5      # run_sac at-scale: rounds of 64 x 1024 env-steps, each with 16 updates
+SAC_EVAL_STEPS = 100
+PPO_N_STEPS = 64    # run_ppo at-scale on the CA env: the rollout depth, cut from 2048
+PPO_ITERS = 2
+PPO_EVAL_STEPS = 32
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -111,8 +143,11 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def scene(cfg, num_envs, generator, device, scatter):
@@ -329,30 +364,41 @@ def check_batched_env_against_cpu(device, env_id, sensor_from, **overrides):
     return worst
 
 
-def step_anatomy(benv, state, wall_ms, steps=20):
-    """Kernels and device time of one auto-reset step of ``benv`` at its
-    width (torch.profiler over ``steps`` steps) against the unprofiled wall
-    time. Returns the figures per step."""
+def profiled(fn, calls):
+    """Device kernels, aten calls and device ms per call of ``fn`` over
+    ``calls`` calls (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    actions = torch.zeros((benv.num_envs, benv.cfg.action_dim), device=benv.device)
     torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                state, _ = benv.step(state, actions)
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     check(kernels, "the profiler saw no device activity")
-    device_ms = sum(e.device_time for e in kernels) / 1e3 / steps
-    ops = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / steps
-    busy = device_ms / wall_ms
-    print(f"  per step: {len(kernels) / steps:.0f} device kernels, {ops:.0f} aten op calls, "
-          f"device busy {device_ms:.4f} ms of {wall_ms:.4f} ms wall (idle share {1 - busy:.3f})",
-          flush=True)
-    return {"device_kernels": len(kernels) / steps, "aten_calls": ops, "device_ms": device_ms,
-            "wall_ms": wall_ms, "idle_share": 1 - busy}
+    return {"device_kernels": len(kernels) / calls,
+            "aten_calls": sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / calls,
+            "device_ms": sum(e.device_time for e in kernels) / 1e3 / calls}
+
+
+def step_anatomy(benv, state, wall_ms, steps=20):
+    """Kernels and device time of one auto-reset step of ``benv`` at its
+    width (torch.profiler over ``steps`` steps) against the unprofiled wall
+    time. Returns the figures per step."""
+    actions = torch.zeros((benv.num_envs, benv.cfg.action_dim), device=benv.device)
+    box = [state]
+
+    def step():
+        box[0], _ = benv.step(box[0], actions)
+
+    a = profiled(step, steps)
+    a.update(wall_ms=wall_ms, idle_share=1 - a["device_ms"] / wall_ms)
+    print(f"  per step: {a['device_kernels']:.0f} device kernels, {a['aten_calls']:.0f} aten op calls, "
+          f"device busy {a['device_ms']:.4f} ms of {wall_ms:.4f} ms wall (idle share "
+          f"{a['idle_share']:.3f})", flush=True)
+    return a
 
 
 def time_steps(benv, n_steps, warm=8, seed=0):
@@ -797,6 +843,347 @@ def policy_serving(device, card, rc):
     return extra
 
 
+def learner_anatomy(fn, calls):
+    """Wall ms per call of ``fn`` by CUDA events (unprofiled), then its aten
+    calls, device kernels and device time per call over the same number of
+    calls (torch.profiler), and the device's idle share."""
+    from usv_tpu_torch.timing import time_cuda
+
+    wall_ms = time_cuda(fn, calls)
+    a = profiled(fn, calls)
+    a.update(wall_ms=wall_ms, idle_share=1 - a["device_ms"] / wall_ms)
+    return a
+
+
+def per_step(anatomy, steps):
+    return {k: (v if k == "idle_share" else v / steps) for k, v in anatomy.items()}
+
+
+def block_rates(logdir):
+    """env-steps/s of each block of a train CLI's run (updates included; the
+    eval and checkpoint after a block are outside its time)."""
+    lines = [json.loads(line) for line in open(f"{logdir}/metrics.jsonl")]
+    return [line["steps_per_second"] for line in lines]
+
+
+def check_bundles(label, logdir, obs, low, high, served_like=None):
+    """``policy`` and ``policy_best`` load on the card and act: finite
+    actions of the right shape inside the bounds; ``served_like`` (the
+    trained network's own deterministic actions) must equal the final
+    bundle's."""
+    from usv_tpu_torch.train.policy import load_policy
+
+    for name in ("policy", "policy_best"):
+        pol = load_policy(f"{logdir}/{name}")
+        check(pol.device.type == "cuda", f"{label} {name}: not on the card")
+        act = pol(obs)
+        check(act.shape == (obs.shape[0], len(low)) and bool(torch.isfinite(act).all()),
+              f"{label} {name}: bad actions {tuple(act.shape)}")
+        lo, hi = torch.tensor(low, device=act.device), torch.tensor(high, device=act.device)
+        check(bool(((act >= lo) & (act <= hi)).all()), f"{label} {name}: actions outside the bounds")
+        if name == "policy" and served_like is not None:
+            err = float((act - served_like).abs().max())
+            check(err == 0.0, f"{label}: the final bundle's actions differ from the network's by {err}")
+    print(f"  {label}: policy and policy_best load on the card and act at batch {obs.shape[0]} "
+          "(finite, inside the bounds; the final bundle equals the trained network)", flush=True)
+
+
+def replay_best(label, env_id, logdir):
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.policy import replay_recorded_eval
+
+    rep = replay_recorded_eval(make(env_id), f"{logdir}/policy_best")
+    gap = abs(rep["recorded"] - rep["replayed"])
+    check(gap <= 1e-6, f"{label}: replayed in-run eval {rep['replayed']} vs recorded {rep['recorded']}")
+    print(f"  {label}: policy_best's recorded in-run eval replayed on the card: {rep['replayed']:.6g} "
+          f"against {rep['recorded']:.6g} (difference {gap:.3g})", flush=True)
+    return gap
+
+
+def sac_training(device, card, rc, tmp):
+    """Phase 10: ``run_sac --recipe at-scale`` on ``usv-simple`` at full
+    width (1024 envs, train_freq 64, gradient_steps 64, update_fusion 4,
+    lr 3e-4, 400x300 actor and twin critics, frame_stack 5, gSDE, the
+    default buffer rounded up to 458,752 rows), learning_starts one round so
+    that every round updates; then --resume, the bundles, and the anatomy of
+    a collect step and an update on the live state. Returns the record's
+    keys, the largest kernel-vs-plain difference on the learner's live state,
+    the learner and its state."""
+    from usv_tpu_torch.train import run_sac
+
+    t_phase = time.perf_counter()
+    round_steps = 64 * 1024
+    logdir = f"{tmp}/sac"
+    base = ["--recipe", "at-scale", "--env", "usv-simple", "--learning-starts", str(round_steps),
+            "--rounds-per-block", "1", "--eval-every-blocks", "2", "--eval-steps", str(SAC_EVAL_STEPS),
+            "--checkpoint-every-blocks", "0", "--logdir", logdir]
+    rc.counter.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        learner, ts = run_sac.main(base + ["--total-steps", str(SAC_ROUNDS * round_steps)])
+    seconds = time.perf_counter() - t0
+    launches = rc.counter.launches
+    cfg = learner.cfg
+    check((cfg.num_envs, cfg.train_freq, cfg.gradient_steps, cfg.update_fusion, cfg.learning_rate,
+           cfg.hidden, cfg.frame_stack, cfg.use_sde) == (1024, 64, 64, 4, 3e-4, (400, 300), 5, True),
+          f"the at-scale recipe resolved to {cfg}")
+    check(learner.buffer_capacity == 458_752 and any("rounded 400000 -> 458752" in str(w.message)
+                                                     for w in caught), "buffer capacity round-up")
+    check(ts.batch.frames.device.type == "cuda" and ts.buffer.obs.device.type == "cuda",
+          "the learner is not on the card")
+    evals = SAC_ROUNDS // 2
+    expected = SAC_ROUNDS * cfg.train_freq + evals * SAC_EVAL_STEPS
+    check(launches == expected, f"SAC training: {launches} kernel launches, expected {expected} "
+                                f"({SAC_ROUNDS} rounds x 64 collect steps + {evals} evals x {SAC_EVAL_STEPS})")
+    check(ts.grad_steps == SAC_ROUNDS * learner.updates_per_round(), f"grad_steps {ts.grad_steps}")
+    check(all(bool(torch.isfinite(p).all()) for m in (ts.actor, ts.critic, ts.target_critic)
+              for p in m.parameters()) and bool(torch.isfinite(ts.log_alpha).all()),
+          "non-finite parameters after training")
+    rates = block_rates(logdir)
+    ckpt = f"{logdir}/ckpt/{ts.env_steps * cfg.num_envs}/train_state.pt"
+    ckpt_bytes = os.path.getsize(ckpt)
+    buffer_bytes = ts.buffer.nbytes()
+    print(f"  run_sac --recipe at-scale: {SAC_ROUNDS} rounds of {round_steps} env-steps, "
+          f"{ts.grad_steps} updates of batch {learner._fusion * cfg.batch_size}, {seconds:.2f} s "
+          f"with evals, watch, the checkpoint and the exports; env-steps/s including updates per "
+          f"block {[round(r, 1) for r in rates]} on {card}", flush=True)
+    print(f"  kernel launches {launches} = {SAC_ROUNDS} rounds x {cfg.train_freq} (one per collect "
+          f"step) + {evals} evals x {SAC_EVAL_STEPS}; replay buffer {buffer_bytes} bytes on the card "
+          f"({learner.buffer_capacity} rows); checkpoint {ckpt_bytes} bytes", flush=True)
+
+    max_err = check_kernel_on_live_state("usv-simple", learner.handle.cfg, ts.batch.env)
+
+    obs = ts.batch.frames.reshape(cfg.num_envs, -1)
+    with torch.no_grad():
+        own = ts.actor.deterministic(obs)
+    check_bundles("SAC", logdir, obs, learner.action_low, learner.action_high, own)
+    replay_gap = replay_best("SAC", "usv-simple", logdir)
+
+    # --resume: one more round from the final checkpoint, against this run
+    # continued in memory by one round (cuBLAS and atomics may not repeat to
+    # the bit on the card: the difference is reported, not held to zero). The
+    # restore reads the full checkpoint; the resumed leg's own save is light.
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="replay capacity rounded")  # checked above
+        _, resumed = run_sac.main(base + ["--total-steps", str((SAC_ROUNDS + 1) * round_steps),
+                                          "--resume", "--light-checkpoints"])
+    resume_seconds = time.perf_counter() - t0
+    learner.train_rounds(ts, 1)
+    check(resumed.env_steps == ts.env_steps and resumed.grad_steps == ts.grad_steps,
+          f"resumed run at {resumed.env_steps} steps / {resumed.grad_steps} updates")
+    resume_diff = max(float((a - b).detach().abs().max())
+                      for m, n in ((resumed.actor, ts.actor), (resumed.critic, ts.critic))
+                      for a, b in zip(m.parameters(), n.parameters()))
+    check(math.isfinite(resume_diff), "non-finite parameters after the resume")
+    print(f"  --resume: restored at {SAC_ROUNDS * round_steps} env-steps and trained one more round "
+          f"({resume_seconds:.2f} s with the restore and a light checkpoint); largest parameter difference "
+          f"to the run continued in memory {resume_diff:.3g}", flush=True)
+    del resumed
+
+    # the anatomy of a collect cycle (64 steps) and of an update, on the live state
+    rc.counter.launches = 0
+    collect = per_step(learner_anatomy(lambda: learner._env_cycle(ts), 2), cfg.train_freq)
+    check(rc.counter.launches == 5 * cfg.train_freq, f"{rc.counter.launches} launches in 5 collect cycles")
+    rc.counter.launches = 0
+    batch = learner._fusion * cfg.batch_size
+    update = learner_anatomy(lambda: learner._update_once(ts, batch_size=batch), 8)
+    check(rc.counter.launches == 0, f"{rc.counter.launches} kernel launches in the update phase")
+    round_ms = cfg.train_freq * collect["wall_ms"] + learner.updates_per_round() * update["wall_ms"]
+    rate = round_steps / round_ms * 1e3
+    for name, a in (("collect step", collect), ("update", update)):
+        print(f"  per {name}: {a['wall_ms']:.4f} ms (CUDA events), {a['aten_calls']:.0f} aten calls, "
+              f"{a['device_kernels']:.0f} device kernels, device busy {a['device_ms']:.4f} ms "
+              f"(idle share {a['idle_share']:.3f})", flush=True)
+    print(f"  a round from these: 64 x {collect['wall_ms']:.4f} + 16 x {update['wall_ms']:.4f} ms = "
+          f"{round_ms:.2f} ms, {rate:.1f} env-steps/s including updates on {card}", flush=True)
+    return {"sac_training_launches": launches, "sac_training_launches_per_round": cfg.train_freq,
+            "sac_training_rounds": SAC_ROUNDS, "sac_training_block_env_steps_per_s": rates,
+            "sac_training_env_steps_per_s": rate, "sac_training_collect_step": collect,
+            "sac_training_update": update, "sac_training_buffer_bytes": buffer_bytes,
+            "sac_training_checkpoint_bytes": ckpt_bytes, "sac_training_seconds": seconds,
+            "sac_training_resume_max_param_diff": resume_diff,
+            "sac_training_replay_gap": replay_gap, "sac_training_kernel_max_abs_err": max_err,
+            "sac_training_seconds_phase": time.perf_counter() - t_phase}, max_err, learner, ts
+
+
+def ppo_training(device, card, rc, tmp):
+    """Phase 11: ``run_ppo --recipe at-scale`` on ``usv-asmc-ca-v0`` at full
+    width (256 envs, minibatch 2048, fusion 1 on this family, one shuffle per
+    iteration, 256x256 actor-critic, gSDE, frame_stack 5), its depth cut:
+    ``--n-steps`` 64 (of 2048) and two iterations. Then the bundles and the
+    anatomy of a collect step and a minibatch step. Returns the record's
+    keys, the largest kernel-vs-plain difference on the learner's live
+    state, the learner, its state and a 2048-row minibatch."""
+    from usv_tpu_torch.train import run_ppo
+    from usv_tpu_torch.train.ppo import PpoLearner
+
+    t_phase = time.perf_counter()
+    logdir = f"{tmp}/ppo"
+    iter_steps = PPO_N_STEPS * 256
+    argv = ["--recipe", "at-scale", "--env", "usv-asmc-ca-v0", "--n-steps", str(PPO_N_STEPS),
+            "--total-steps", str(PPO_ITERS * iter_steps), "--eval-every-iters", str(PPO_ITERS),
+            "--eval-steps", str(PPO_EVAL_STEPS), "--watch-every-iters", "1", "--logdir", logdir]
+    rc.counter.launches = 0
+    t0 = time.perf_counter()
+    learner, ts = run_ppo.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = rc.counter.launches
+    cfg = learner.cfg
+    check((cfg.num_envs, cfg.batch_size, cfg.update_fusion, cfg.reshuffle_epochs, cfg.pi_hidden,
+           cfg.vf_hidden, cfg.frame_stack, cfg.use_sde) == (256, 2048, 1, False, (256, 256), (256, 256),
+                                                             5, True), f"the at-scale recipe resolved to {cfg}")
+    n_mb = iter_steps // cfg.batch_size
+    check(ts.opt_steps == PPO_ITERS * cfg.n_epochs * n_mb and cfg.lr_decay_updates == ts.opt_steps,
+          f"{ts.opt_steps} optimizer steps, lr decay over {cfg.lr_decay_updates}")
+    # the reset launches once (its bootstrap step), every collect step twice
+    # (the step's and the fresh reset's), the eval likewise
+    expected = 1 + PPO_ITERS * PPO_N_STEPS * 2 + (1 + 2 * PPO_EVAL_STEPS)
+    check(launches == expected, f"PPO training: {launches} kernel launches, expected {expected}")
+    check(all(bool(torch.isfinite(p).all()) for p in ts.model.parameters()), "non-finite PPO parameters")
+    rates = block_rates(logdir)
+    print(f"  run_ppo --recipe at-scale on usv-asmc-ca-v0: {PPO_ITERS} iterations of {PPO_N_STEPS} steps "
+          f"x 256 envs (depth cut from n_steps 2048; widths as the recipe), {ts.opt_steps} optimizer "
+          f"steps of batch {cfg.batch_size}, {seconds:.2f} s with the eval, watch, checkpoints and "
+          f"exports; env-steps/s including updates per iteration {[round(r, 1) for r in rates]} on {card}",
+          flush=True)
+    print(f"  kernel launches {launches} = 1 (reset) + {PPO_ITERS} x {PPO_N_STEPS} x 2 + the eval's "
+          f"1 + 2 x {PPO_EVAL_STEPS}", flush=True)
+    env_cfg = learner.handle.cfg
+    max_err = check_kernel_on_live_state("usv-asmc-ca-v0", env_cfg, ts.batch.env)
+
+    obs = ts.batch.frames.reshape(cfg.num_envs, -1)
+    with torch.no_grad():
+        own = torch.clamp(ts.model.pi_mean(ts.model.pi_trunk(obs)), learner._low, learner._high)
+    check_bundles("PPO", logdir, obs, env_cfg.action_low, env_cfg.action_high, own)
+    replay_gap = replay_best("PPO", "usv-asmc-ca-v0", logdir)
+
+    # the anatomy on the live state, through a learner of the same config
+    # and 8-step rollouts: 3 x 8 steps cost less than the 3 x 64 of the
+    # run's own learner (constructing it resets nothing)
+    short = PpoLearner(learner.handle, dataclasses.replace(cfg, n_steps=8))
+    out = {}
+
+    def collect():
+        out["ts"], out["traj"], out["last"] = short._collect(ts)
+
+    rc.counter.launches = 0
+    col = per_step(learner_anatomy(collect, 1), 8)
+    check(rc.counter.launches == 3 * 2 * 8, f"{rc.counter.launches} launches in 3 collects of 8 steps")
+    advs, rets = short._gae(out["traj"], out["last"], cfg.gamma, cfg.gae_lambda)
+    draw, batches, _ = short._minibatches(out["traj"], advs, rets)
+    mb = {k: v[0] for k, v in batches(draw(ts.generator)).items()}
+    rc.counter.launches = 0
+    step = learner_anatomy(lambda: learner._minibatch_step(ts, mb), 8)
+    short._update(ts, out["traj"], out["last"])
+    check(rc.counter.launches == 0, f"{rc.counter.launches} kernel launches in the update phase")
+    iter_ms = PPO_N_STEPS * col["wall_ms"] + cfg.n_epochs * n_mb * step["wall_ms"]
+    rate = iter_steps / iter_ms * 1e3
+    for name, a in (("collect step", col), ("minibatch step", step)):
+        print(f"  per {name}: {a['wall_ms']:.4f} ms (CUDA events), {a['aten_calls']:.0f} aten calls, "
+              f"{a['device_kernels']:.0f} device kernels, device busy {a['device_ms']:.4f} ms "
+              f"(idle share {a['idle_share']:.3f})", flush=True)
+    print(f"  an iteration from these: {PPO_N_STEPS} x {col['wall_ms']:.4f} + {cfg.n_epochs * n_mb} x "
+          f"{step['wall_ms']:.4f} ms = {iter_ms:.2f} ms, {rate:.1f} env-steps/s including updates; "
+          f"2 kernel launches per collect step, none in the update phase", flush=True)
+    return {"ppo_training_launches": launches, "ppo_training_launches_per_collect_step": 2,
+            "ppo_training_iterations": PPO_ITERS, "ppo_training_n_steps": PPO_N_STEPS,
+            "ppo_training_block_env_steps_per_s": rates, "ppo_training_env_steps_per_s": rate,
+            "ppo_training_collect_step": col, "ppo_training_minibatch_step": step,
+            "ppo_training_seconds": seconds, "ppo_training_replay_gap": replay_gap,
+            "ppo_training_kernel_max_abs_err": max_err,
+            "ppo_training_seconds_phase": time.perf_counter() - t_phase}, max_err, learner, ts, mb
+
+
+def grad_gap(card_grads, cpu_grads):
+    """(largest |card - CPU| over all entries, largest |CPU| entry)."""
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(card_grads, cpu_grads))
+    scale = max(float(b.abs().max()) for b in cpu_grads)
+    return diff, scale
+
+
+def update_card_vs_cpu(sac, sac_ts, ppo, ppo_ts, mb):
+    """Phase 12: one SAC ``_update_once`` and one PPO minibatch step from one
+    state and one set of draws, on the card and on the CPU: the gradients
+    before the step within 1e-4 of the largest entry (float32 on both sides,
+    summed in other orders), the parameters after it within ``2 * lr`` (an
+    Adam step is near ``lr * sign(g)`` where a moment is small)."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.buffer import ReplayBuffer, buffer_add_batch, buffer_sample
+    from usv_tpu_torch.train.ppo import PpoLearner
+    from usv_tpu_torch.train.sac import SacLearner
+
+    out = {}
+    # SAC: the CPU learner holds the card state's networks, optimizers and
+    # temperature, and the sampled rows at the head of its buffer
+    bs = sac._fusion * sac.cfg.batch_size
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the small CPU buffer's round-up
+        cpu = SacLearner(make("usv-simple", device="cpu"), dataclasses.replace(sac.cfg, buffer_size=bs))
+    cts = cpu.init(0)
+    for name in ("actor", "critic", "target_critic", "actor_opt", "critic_opt", "alpha_opt"):
+        getattr(cts, name).load_state_dict(getattr(sac_ts, name).state_dict())
+    with torch.no_grad():
+        cts.log_alpha.copy_(sac_ts.log_alpha.cpu())
+    cts.grad_steps = sac_ts.grad_steps
+    d = sac._update_draws(sac_ts, bs, sac_ts.generator)
+    batch = buffer_sample(sac_ts.buffer, bs, idx=d["idx"])
+    buffer_add_batch(cts.buffer, *(batch[k].cpu() for k in ReplayBuffer.FIELDS))
+    cd = {k: v.cpu() for k, v in d.items()}
+    cd["idx"] = torch.arange(bs)
+    cbatch = {k: v.cpu() for k, v in batch.items()}
+    gaps = {}
+    for side, (lrn, st, b, dr) in (("card", (sac, sac_ts, batch, d)), ("cpu", (cpu, cts, cbatch, cd))):
+        gc = torch.autograd.grad(lrn._critic_loss(st, b, dr["noise_next"]), list(st.critic.parameters()))
+        loss, _ = lrn._actor_loss(st, b, dr["noise_actor"], dr["noise_spatial"])
+        ga = torch.autograd.grad(loss, list(st.actor.parameters()))
+        gaps[side] = (gc, ga)
+    for i, name in enumerate(("critic", "actor")):
+        diff, scale = grad_gap(gaps["card"][i], gaps["cpu"][i])
+        check(diff <= 1e-4 * scale, f"SAC {name} gradients, card vs CPU: {diff} of {scale}")
+        out[f"sac_{name}_grad_max_abs_diff"], out[f"sac_{name}_grad_max_abs"] = diff, scale
+    lr = sac.lr_at(sac_ts.grad_steps)
+    sac._update_once(sac_ts, bs, draws=d)
+    cpu._update_once(cts, bs, draws=cd)
+    pdiff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for m in ("actor", "critic", "target_critic")
+                for a, b in zip(getattr(sac_ts, m).parameters(), getattr(cts, m).parameters()))
+    check(pdiff <= 2 * lr + 1e-6, f"SAC parameters after the update, card vs CPU: {pdiff}")
+    out["sac_param_max_abs_diff_after_update"] = pdiff
+
+    # PPO: the CA learner's state and one 2048-row minibatch
+    cpu = PpoLearner(make("usv-asmc-ca-v0", device="cpu"), ppo.cfg)
+    pts = cpu.init(0)
+    pts.model.load_state_dict(ppo_ts.model.state_dict())
+    pts.opt.load_state_dict(ppo_ts.opt.state_dict())
+    pts.opt_steps = ppo_ts.opt_steps
+    cmb = {k: v.cpu() for k, v in mb.items()}
+    cfg = ppo.cfg
+    g_card = torch.autograd.grad(ppo._loss(ppo_ts.model, mb, cfg.clip_range, cfg.ent_coef, cfg.vf_coef),
+                                 list(ppo_ts.model.parameters()))
+    g_cpu = torch.autograd.grad(cpu._loss(pts.model, cmb, cfg.clip_range, cfg.ent_coef, cfg.vf_coef),
+                                list(pts.model.parameters()))
+    diff, scale = grad_gap(g_card, g_cpu)
+    check(diff <= 1e-4 * scale, f"PPO gradients, card vs CPU: {diff} of {scale}")
+    out["ppo_grad_max_abs_diff"], out["ppo_grad_max_abs"] = diff, scale
+    lr = ppo.lr_at(ppo_ts.opt_steps)
+    ppo._minibatch_step(ppo_ts, mb)
+    cpu._minibatch_step(pts, cmb)
+    pdiff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                for a, b in zip(ppo_ts.model.parameters(), pts.model.parameters()))
+    check(pdiff <= 2 * lr + 1e-6, f"PPO parameters after the step, card vs CPU: {pdiff}")
+    out["ppo_param_max_abs_diff_after_step"] = pdiff
+    print(f"  SAC update at batch {bs}, card vs CPU: critic gradients differ by at most "
+          f"{out['sac_critic_grad_max_abs_diff']:.3g} (largest entry {out['sac_critic_grad_max_abs']:.3g}), "
+          f"actor {out['sac_actor_grad_max_abs_diff']:.3g} ({out['sac_actor_grad_max_abs']:.3g}); "
+          f"parameters after the update {out['sac_param_max_abs_diff_after_update']:.3g}", flush=True)
+    print(f"  PPO minibatch step at batch {cfg.batch_size}, card vs CPU: gradients differ by at most "
+          f"{out['ppo_grad_max_abs_diff']:.3g} (largest entry {out['ppo_grad_max_abs']:.3g}); parameters "
+          f"after the step {pdiff:.3g} (bounds: 1e-4 of the largest gradient, 2 x lr)", flush=True)
+    return {"update_card_vs_cpu": out}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -885,6 +1272,21 @@ def main():
     phase("policy serving")
     serving_record = policy_serving(device, card, rc)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("SAC training: usv-simple")
+        sac_record, live_err, sac, sac_ts = sac_training(device, card, rc, tmp)
+        max_err = max(max_err, live_err)
+        phase("PPO training: usv-asmc-ca-v0")
+        ppo_record, live_err, ppo, ppo_ts, mb = ppo_training(device, card, rc, tmp)
+        max_err = max(max_err, live_err)
+    phase("one update, card against CPU")
+    t0 = time.perf_counter()
+    compare_record = update_card_vs_cpu(sac, sac_ts, ppo, ppo_ts, mb)
+    compare_record["update_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    training_live = (("SAC training, its live state,", "usv-simple", sac.handle.cfg, sac_ts.batch.env),
+                     ("PPO training, its live state,", "usv-asmc-ca-v0", ppo.handle.cfg, ppo_ts.batch.env))
+    del sac, sac_ts, ppo, ppo_ts, mb
+
     phase("kernel time")
 
     def time_shape(label, args, bd, mask, n_accs=(1,)):
@@ -956,6 +1358,10 @@ def main():
         pos, oxy, orr, mask, obd = scene(other, NUM_ENVS, g, device, scatter=False)
         other_rows.append(time_shape(label, (pos, oxy, orr, mask, R, other.sensor_max_range,
                                              other.sensor_span), obd, mask))
+    # the training paths' shapes on the learners' live states
+    for label, env_id, live_cfg, live_state in training_live:
+        live_args, live_bd = live_scene(env_id, live_cfg, live_state)
+        other_rows.append(time_shape(label, live_args, live_bd, live_args[3]))
     kernel_ms, plain_ms, bound_ms = main_row["ms"], main_row["plain_ms"], main_row["bound_ms"]
 
     record = {
@@ -990,6 +1396,9 @@ def main():
         "curved_empty_kernel_ms": curved_row["empty_kernel_ms"],
         **legacy_record,
         **serving_record,
+        **sac_record,
+        **ppo_record,
+        **compare_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

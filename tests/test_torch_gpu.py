@@ -21,6 +21,10 @@ CUDA. Run them on a machine with one:
   true-min: bit for bit.
 * A policy bundle on the card against the same bundle on the CPU (actions
   within 1e-5), and ``batch_policy_metrics`` on the card.
+* The learners on the card: SAC trains a few rounds with one kernel launch
+  per collect step and none in its updates, PPO collects with two launches
+  per CA step and updates with none, and one SAC update's gradients on the
+  card agree with the CPU's within 1e-4 of the largest entry.
 """
 
 import itertools
@@ -472,3 +476,78 @@ def test_policy_bundle_on_card_matches_cpu(cuda, tmp_path):
     assert counter.launches == before + 13
     assert metrics["episodes_finished"] >= 2 * 128 and math.isfinite(metrics["reward_per_step"])
     assert "info_arrived" in metrics and "info_collision" in metrics
+
+
+SAC_SMALL = dict(buffer_size=4096, batch_size=64, learning_starts=64, num_envs=8, train_freq=4,
+                 gradient_steps=2, hidden=(64, 64), frame_stack=2)
+
+
+def test_sac_trains_on_card_with_one_launch_per_collect_step(cuda):
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    learner = SacLearner(make("usv-simple"), SacConfig(**SAC_SMALL))
+    ts = learner.init(0)
+    assert ts.buffer.obs.is_cuda and ts.batch.frames.is_cuda and next(ts.actor.parameters()).is_cuda
+    before = counter.launches
+    ts, reward = learner.train_rounds(ts, 4)
+    assert counter.launches == before + 4 * 4  # one per collect step, none in an update
+    assert ts.grad_steps == 3 * 2 and torch.isfinite(reward)
+    assert all(torch.isfinite(p).all() for p in ts.actor.parameters())
+    stats = learner.eval_policy_stats(ts, n_steps=5, num_envs=4)
+    assert math.isfinite(stats["reward_per_step"]) and math.isfinite(learner.watch(ts)["alpha"])
+
+
+def test_ppo_trains_on_card_with_two_launches_per_ca_collect_step(cuda):
+    from usv_tpu_torch.train.ppo import PpoConfig, PpoLearner
+
+    learner = PpoLearner(make("usv-asmc-ca-v0"), PpoConfig(n_steps=8, batch_size=32, n_epochs=2, num_envs=8,
+                                                             pi_hidden=(32, 32), vf_hidden=(32, 32),
+                                                             frame_stack=2))
+    ts = learner.init(0)
+    before = counter.launches
+    ts, traj, last = learner._collect(ts)
+    assert counter.launches == before + 2 * 8
+    learner._update(ts, traj, last)
+    assert counter.launches == before + 2 * 8  # the update phase launches nothing
+    assert ts.opt_steps == 2 * 2 and all(torch.isfinite(p).all() for p in ts.model.parameters())
+
+
+def test_sac_update_on_card_matches_cpu(cuda):
+    """Gradients of one state and one set of draws on the card and the CPU
+    within 1e-4 of the largest entry (float32 on both sides, summed in other
+    orders); the parameters after ``_update_once`` within ``2 * lr`` (the
+    first Adam step is near ``lr * sign(g)``)."""
+    from usv_tpu_torch.train.buffer import buffer_sample
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    sides = {}
+    for name, device in (("card", None), ("cpu", "cpu")):
+        learner = SacLearner(make("usv-simple", device=device), SacConfig(**SAC_SMALL))
+        ts = learner.init(0)  # the same weights on both (built on the CPU from the seed)
+        sides[name] = (learner, ts)
+    card, cts = sides["card"]
+    card.train_rounds(cts, 3)
+    cpu, pts = sides["cpu"]
+    # log_alpha as well: both losses read the trained temperature
+    for name in ("actor", "critic", "target_critic", "actor_opt", "critic_opt", "alpha_opt"):
+        getattr(pts, name).load_state_dict(getattr(cts, name).state_dict())
+    with torch.no_grad():
+        pts.log_alpha.copy_(cts.log_alpha.cpu())
+    for field in ("obs", "action", "reward", "next_obs", "done"):
+        getattr(pts.buffer, field).copy_(getattr(cts.buffer, field).cpu())
+    pts.buffer.ptr, pts.buffer.size = cts.buffer.ptr, cts.buffer.size
+    draws = card._update_draws(cts, 64, cts.generator)
+    cdraws = {k: v.cpu() for k, v in draws.items()}
+    grads = {}
+    for name, (learner, ts), d in (("card", sides["card"], draws), ("cpu", sides["cpu"], cdraws)):
+        batch = buffer_sample(ts.buffer, 64, idx=d["idx"])
+        gc = torch.autograd.grad(learner._critic_loss(ts, batch, d["noise_next"]), list(ts.critic.parameters()))
+        loss, _ = learner._actor_loss(ts, batch, d["noise_actor"], d["noise_spatial"])
+        grads[name] = gc + torch.autograd.grad(loss, list(ts.actor.parameters()))
+    scale = max(float(g.abs().max()) for g in grads["cpu"])
+    assert max(float((a.cpu() - b).abs().max()) for a, b in zip(grads["card"], grads["cpu"])) <= 1e-4 * scale
+    card._update_once(cts, draws=draws)
+    cpu._update_once(pts, draws=cdraws)
+    lr = card.cfg.learning_rate
+    for a, b in zip(cts.actor.parameters(), pts.actor.parameters()):
+        assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2 * lr + 1e-6

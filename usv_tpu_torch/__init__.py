@@ -10,11 +10,12 @@ policy over them: the actor and critic networks, policy bundles (also those
 exported by the JAX package), the batched evaluation and its CLI. The
 ray-cast sensor that every env with a sensor reaches is a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/raycast.cu``); the rest is eager
-tensor ops and ``nn.Linear``. Subpackages mirror ``usv_tpu`` module for
+tensor ops and ``nn.Linear``. It trains
+policies too: the replay buffer, the SAC and PPO learners, checkpoints and
+the ``run_sac``/``run_ppo`` CLIs. Subpackages mirror ``usv_tpu`` module for
 module so a reader finds each counterpart at the same path. Not ported yet:
-the learners (buffer, PPO, SAC, checkpoints, population, the train CLIs),
-the data-parallel layer, the gym adapters and the host-side video and plot
-utilities.
+seed populations (``train/population.py``), the data-parallel layer, the gym
+adapters and the host-side video and plot utilities.
 
 Rules of the port
 -----------------
@@ -25,8 +26,9 @@ Rules of the port
   import runs the ``usv_tpu`` package). What the port needs from such a
   module it keeps its own copy of. Only the tests import both packages.
 * Entry points run on the card: ``make(..., device=None)``, ``BatchedEnv``,
-  ``rollout``, ``throughput``, ``load_policy`` and ``run_eval`` use
-  ``torch.device("cuda")`` and raise when CUDA is absent.
+  ``rollout``, ``throughput``, ``load_policy``, the learners (on their env
+  handle's device) and the ``run_*`` CLIs use ``torch.device("cuda")`` and
+  raise when CUDA is absent.
   The CPU is used only when the caller asks for it (the tests do).
 * Batch-first tensors: an env state is a dataclass of ``(B, ...)`` tensors
   (or of further such dataclasses: ``base``, ``ctrl``, ``dyn``); JAX's
@@ -50,7 +52,8 @@ ops     : the ray-cast sensor (plain torch form, CUDA kernel, dispatch)
 envs    : the eight functional env cores, auto-reset (full, pooled), registry
 vector  : ``BatchedEnv``, the frame stack, the rollout and throughput protocol
 models  : MLP, SAC actor and twin critic, PPO actor-critic, gSDE state
-train   : policy bundles, the batched evaluation, ``run_eval``, metric logging
+train   : replay buffer, SAC and PPO learners, checkpoints, ``run_sac``/``run_ppo``,
+          policy bundles, the batched evaluation, ``run_eval``, metric logging
 utils   : numerical guards, PCHIP path generation, the numpy-only policy
 convert : carrying JAX states and flax weights (as numpy arrays) across
 """

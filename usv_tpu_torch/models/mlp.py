@@ -74,15 +74,21 @@ class MLP(nn.Module):
             in_dim = f
 
     def forward(self, x):
+        # casts only where a dtype differs: a no-op ``to`` is still one
+        # dispatched call, and a training step runs dozens of these layers
         dtype = self.compute_dtype
-        x = x.to(dtype)
+        if x.dtype != dtype:
+            x = x.to(dtype)
         last = len(self.features) - 1
         for i in range(last + 1):
             layer = getattr(self, f"dense_{i}")
-            x = F.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+            w, b = layer.weight, layer.bias
+            if w.dtype != dtype:
+                w, b = w.to(dtype), b.to(dtype)
+            x = F.linear(x, w, b)
             if i < last or self.activate_final:
                 x = F.relu(x)
-        return x.to(torch.float32)
+        return x if x.dtype == torch.float32 else x.to(torch.float32)
 
 
 class SquashedGaussianActor(nn.Module):

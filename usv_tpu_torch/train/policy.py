@@ -10,8 +10,9 @@ on-vehicle control loop or a batch inference server. It also accepts the
 ``policy_np.npz`` that either package's :func:`export_numpy_policy` writes, so
 a policy trained with the JAX package is served here.
 
-The halves that need the learners — ``export_policy(learner, ...)`` and
-``replay_recorded_eval`` — arrive with them.
+:func:`export_policy` writes a learner's deterministic policy as a bundle;
+:func:`replay_recorded_eval` reruns the in-run eval that a ``policy_best``
+bundle records.
 """
 
 from __future__ import annotations
@@ -111,6 +112,28 @@ def save_policy(meta: dict, module: torch.nn.Module, path, extra_meta=None) -> s
     return str(path)
 
 
+def export_policy(learner, train_state, path, extra_meta=None) -> str:
+    """Save the deterministic policy of a Sac/Ppo learner to ``path``: the
+    bundle :func:`save_policy` writes, with the JAX package's ``policy.json``
+    keys for kind ``"sac"`` and ``"ppo"``. ``extra_meta`` is merged into the
+    metadata — the train CLIs record there the in-run eval that selected a
+    ``policy_best`` export (:func:`in_run_eval_meta`)."""
+    from usv_tpu_torch.train.ppo import PpoLearner
+    from usv_tpu_torch.train.sac import SacLearner
+
+    if isinstance(learner, SacLearner):
+        module = train_state.actor
+        low, high = learner.action_low, learner.action_high
+    elif isinstance(learner, PpoLearner):
+        module = train_state.model
+        low, high = learner.handle.cfg.action_low, learner.handle.cfg.action_high
+    else:
+        raise TypeError(f"unsupported learner type {type(learner)!r}")
+    meta = module_meta(module, learner.cfg.frame_stack, [float(v) for v in low],
+                       [float(v) for v in high], compute_dtype=learner.cfg.compute_dtype)
+    return save_policy(meta, module, path, extra_meta=extra_meta)
+
+
 def in_run_eval_meta(env_id, best_metric, score, stats, eval_seed,
                      n_steps, num_envs) -> dict:
     """Build the ``in_run_eval`` metadata block attached to a ``policy_best``
@@ -126,6 +149,67 @@ def in_run_eval_meta(env_id, best_metric, score, stats, eval_seed,
         num_envs=int(num_envs),
         seed=int(eval_seed),
     )}
+
+
+def replay_recorded_eval(handle, bundle_path) -> dict:
+    """Re-run a bundle's recorded in-run eval (the learner's eval program,
+    the bundle's parameters, the recorded protocol shape and seed) on
+    ``handle``'s device and return ``{"recorded": ..., "replayed": ...,
+    "stats": ...}``.
+
+    Agreement bit for bit attributes any in-run-vs-re-eval score gap to eval
+    seed variance; disagreement would indicate export infidelity. A bundle
+    written by the JAX package records a JAX key, not a seed: its eval ran on
+    JAX's key chain, which torch's generators cannot reproduce, so it is
+    refused."""
+    from usv_tpu_torch.train.metrics import score_eval_stats
+    from usv_tpu_torch.train.ppo import PpoConfig, PpoLearner
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    policy = load_policy(bundle_path, device=handle.device)
+    meta = policy.meta
+    rec = meta.get("in_run_eval")
+    if rec is None:
+        raise ValueError(
+            f"{bundle_path} has no recorded in-run eval (exported as a final "
+            "'policy' rather than 'policy_best', or by an older CLI)"
+        )
+    if "seed" not in rec:
+        raise ValueError(
+            f"{bundle_path} records its in-run eval by a JAX key (key_data), not a seed: "
+            "a JAX key cannot be replayed by torch's generators; replay it with the JAX "
+            "package's run_eval --replay-recorded-eval"
+        )
+    if rec.get("env") and rec["env"] != handle.env_id:
+        raise ValueError(
+            f"bundle's recorded eval ran on {rec['env']!r} but the given "
+            f"env handle is {handle.env_id!r} — replay with the recorded "
+            "env (run_eval --env) or the comparison is meaningless"
+        )
+    # compute_dtype is restored too: a --bf16 run's in-run eval scored the
+    # model with bfloat16 trunks (old bundles lack the field -> float32)
+    compute_dtype = meta.get("compute_dtype", "float32")
+    if meta["kind"] == "sac":
+        learner = SacLearner(handle, SacConfig(
+            hidden=tuple(meta["hidden"]), log_std_init=meta["log_std_init"],
+            use_sde=meta["use_sde"], frame_stack=meta["frame_stack"], num_envs=rec["num_envs"],
+            compute_dtype=compute_dtype, action_low=tuple(meta["action_low"]),
+            action_high=tuple(meta["action_high"]),
+            # one write block: the learner's replay buffer is never used here
+            buffer_size=rec["num_envs"] * SacConfig.train_freq))
+        net = learner.build_actor()
+    else:
+        learner = PpoLearner(handle, PpoConfig(
+            pi_hidden=tuple(meta["pi_hidden"]), vf_hidden=tuple(meta["vf_hidden"]),
+            log_std_init=meta["log_std_init"], use_sde=meta["use_sde"],
+            frame_stack=meta["frame_stack"], num_envs=rec["num_envs"],
+            compute_dtype=compute_dtype))
+        net = learner.build_model()
+    net.load_state_dict(policy.module.state_dict(), strict=True)
+    stats = learner.eval_policy_stats_at(net.to(handle.device), rec["seed"],
+                                         n_steps=rec["n_steps"], num_envs=rec["num_envs"])
+    _, replayed = score_eval_stats(stats, rec.get("best_metric", "reward"))
+    return dict(recorded=rec["score"], replayed=float(replayed), stats=stats)
 
 
 class Policy:

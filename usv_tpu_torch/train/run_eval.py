@@ -35,11 +35,13 @@ def main(argv=None):
                    help="also render an episode video (host-side)")
     p.add_argument("--replay-recorded-eval", action="store_true",
                    help="re-run the in-run eval recorded in the bundle "
-                        "metadata and report recorded vs replayed")
+                        "metadata (same learner program, protocol and seed) and "
+                        "report recorded vs replayed — agreement bit for bit "
+                        "attributes any in-run-vs-re-eval gap to eval-seed variance "
+                        "rather than export infidelity")
     args = p.parse_args(argv)
-    if args.replay_recorded_eval:
-        p.error("--replay-recorded-eval reruns a learner's eval program and the "
-                "learners (train/ppo.py, train/sac.py) are not ported yet")
+    if args.replay_recorded_eval and not args.policy:
+        p.error("--replay-recorded-eval requires --policy")
     if args.video:
         p.error("--video needs utils/video.py, which is not ported yet")
 
@@ -55,6 +57,14 @@ def main(argv=None):
     handle = make(args.env, device=args.device)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+
+    if args.replay_recorded_eval:
+        from usv_tpu_torch.train.policy import replay_recorded_eval
+
+        rep = replay_recorded_eval(handle, args.policy)
+        rep["exact_match"] = rep["recorded"] == rep["replayed"]
+        (out / "replay_recorded_eval.json").write_text(json.dumps(rep, indent=1))
+        print(json.dumps(rep), flush=True)
 
     if args.policy:
         from usv_tpu_torch.train.policy import load_policy

@@ -1,0 +1,220 @@
+"""SAC training CLI — port of ``usv_tpu/train/run_sac.py``.
+
+Usage:
+    python -m usv_tpu_torch.train.run_sac --env usv-simple --total-steps 1000000 \\
+        --num-envs 256 --logdir runs/sac [--device cpu]
+
+Env batch, replay and learner live on the device (the CUDA card unless
+``--device`` names another); the host loop runs blocks of rounds and logs
+metrics, evals, the best policy and checkpoints. Flags whose code is not
+ported are parser errors that name what they wait for: ``--population`` > 1
+and ``--recipe robust`` (``train/population.py``), ``--shard`` and
+``--shard-local-replay`` (the data-parallel layer) and ``--video-every-blocks``
+(``utils/video.py``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+# SB3-matching fallbacks for the recipe-tunable args (argparse default None
+# so an explicit flag — even one repeating the fallback — beats the recipe)
+_ARG_FALLBACKS = dict(
+    num_envs=256, train_freq=8, gradient_steps=8, update_fusion=1, lr=1e-4,
+    buffer_size=400_000,
+)
+
+
+def apply_recipe(args):
+    """Resolve ``--recipe`` + None-sentinels. Explicit flags always win.
+
+    ``at-scale``: the wide-batch recipe — 1024 envs, 64 env steps / 64
+    gradient steps per round with 4-way update fusion (16 sequential updates
+    of batch 1024), lr 3e-4. ``robust``: the at-scale recipe trained as a
+    seed population (default 4, buffer 100k per seed)."""
+    if args.recipe in ("at-scale", "robust"):
+        if args.num_envs is None:
+            args.num_envs = 1024
+        if args.train_freq is None:
+            args.train_freq = 64
+        if args.gradient_steps is None:
+            args.gradient_steps = 64
+        if args.update_fusion is None:
+            args.update_fusion = 4
+        if args.lr is None:
+            args.lr = 3e-4
+    if args.recipe == "robust":
+        if args.population is None:
+            args.population = 4
+        if args.buffer_size is None:
+            args.buffer_size = 100_000
+    if args.population is None:
+        args.population = 1
+    for name, fallback in _ARG_FALLBACKS.items():
+        if getattr(args, name) is None:
+            setattr(args, name, fallback)
+    return args
+
+
+def build_parser():
+    p = argparse.ArgumentParser()
+    p.add_argument("--env", default="usv-simple")
+    p.add_argument("--recipe", choices=["none", "at-scale", "robust"], default="none",
+                   help="named preset; 'at-scale' = 1024 envs, g64 k4 (16 seq updates of "
+                        "batch 1024 per round), lr 3e-4; 'robust' = at-scale trained as a seed "
+                        "population (waits for train/population.py); explicit flags override")
+    p.add_argument("--total-steps", type=float, default=10e6)  # sb3_train.py:13
+    p.add_argument("--num-envs", type=int, default=None)       # default 256
+    p.add_argument("--buffer-size", type=int, default=None)    # default 400k
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--learning-starts", type=int, default=50_000)
+    p.add_argument("--lr", type=float, default=None)           # default 1e-4
+    p.add_argument("--lr-decay-steps", type=int, default=0,
+                   help="linear lr decay over this many gradient steps "
+                        "(0 = constant, the reference behavior)")
+    p.add_argument("--lr-final-frac", type=float, default=0.1)
+    p.add_argument("--train-freq", type=int, default=None)      # default 8
+    p.add_argument("--gradient-steps", type=int, default=None)  # default 8
+    p.add_argument("--sde", default=True, action=argparse.BooleanOptionalAction,
+                   help="gSDE exploration (reference config_sac default; "
+                        "--no-sde for per-step Gaussian noise)")
+    p.add_argument("--frame-stack", type=int, default=5)
+    p.add_argument("--lambda-t", type=float, default=10.0)
+    p.add_argument("--lambda-s", type=float, default=5.0)
+    p.add_argument("--eps-s", type=float, default=0.1)
+    p.add_argument("--rounds-per-block", type=int, default=200)
+    p.add_argument("--logdir", default="runs/sac")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-every-blocks", type=int, default=10)
+    p.add_argument("--eval-every-blocks", type=int, default=5)
+    p.add_argument("--best-metric", choices=["reward", "arrivals"], default="reward",
+                   help="metric that selects <logdir>/policy_best: eval reward/step, or "
+                        "arrival rate on envs that report arrivals (falls back to reward)")
+    p.add_argument("--eval-steps", type=int, default=500,
+                   help="deterministic-eval rollout length")
+    p.add_argument("--eval-envs", type=int, default=16, help="deterministic-eval batch width")
+    p.add_argument("--ignore-obstacles", action="store_true")
+    p.add_argument("--shard", action="store_true",
+                   help="shard env batch + replay over all local devices (waits for the "
+                        "data-parallel layer)")
+    p.add_argument("--shard-local-replay", action="store_true",
+                   help="with --shard: per-shard replay insert/sample (waits for the "
+                        "data-parallel layer)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 MLP trunks (parameters and Adam state stay float32)")
+    p.add_argument("--fused-updates", action="store_true",
+                   help="one gradient_steps*batch update per round instead "
+                        "of gradient_steps sequential updates")
+    p.add_argument("--update-fusion", type=int, default=None,  # default 1
+                   help="fold k sequential updates into one k*batch update "
+                        "(k must divide gradient-steps)")
+    p.add_argument("--light-checkpoints", action="store_true",
+                   help="exclude the replay buffer from checkpoints (much "
+                        "faster saves; resume re-warms an empty buffer)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest checkpoint from <logdir>/ckpt before training")
+    p.add_argument("--video-every-blocks", type=int, default=0,
+                   help="record a policy episode video every N blocks (waits for utils/video.py)")
+    p.add_argument("--population", type=int, default=None,
+                   help="train N seeds as one population (waits for train/population.py)")
+    p.add_argument("--cull-at-frac", type=float, default=0.0,
+                   help="population racing cull (waits for train/population.py)")
+    p.add_argument("--cull-keep", type=int, default=None,
+                   help="seeds surviving the cull (waits for train/population.py)")
+    p.add_argument("--select-evals", type=int, default=3,
+                   help="re-evals per candidate in population runs (waits for "
+                        "train/population.py)")
+    p.add_argument("--device", default=None, help="torch device; default the CUDA device")
+    return p
+
+
+def main(argv=None):
+    """Train; returns ``(learner, train_state)`` of the finished run."""
+    from usv_tpu_torch.train.common import refuse_unported
+
+    p = build_parser()
+    args = apply_recipe(p.parse_args(argv))
+    refuse_unported(p, args, "--video-every-blocks", args.video_every_blocks)
+    if args.shard or args.shard_local_replay:
+        p.error("--shard and --shard-local-replay need the data-parallel layer "
+                "(parallel/, the shard-local buffer), which is not ported yet")
+
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from usv_tpu_torch.train.metrics import MetricLogger, score_eval_stats
+    from usv_tpu_torch.train.policy import export_policy, in_run_eval_meta
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
+    handle = make(args.env, device=args.device, **env_kwargs)
+    cfg = SacConfig(
+        buffer_size=args.buffer_size,
+        batch_size=args.batch_size,
+        learning_rate=args.lr,
+        lr_decay_steps=args.lr_decay_steps or None,
+        lr_final_fraction=args.lr_final_frac,
+        learning_starts=args.learning_starts,
+        train_freq=args.train_freq,
+        gradient_steps=args.gradient_steps,
+        use_sde=args.sde,
+        num_envs=args.num_envs,
+        frame_stack=args.frame_stack,
+        lambda_t=args.lambda_t,
+        lambda_s=args.lambda_s,
+        eps_s=args.eps_s,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        fused_updates=args.fused_updates,
+        update_fusion=args.update_fusion,
+    )
+    learner = SacLearner(handle, cfg)
+    ts = learner.init(seed=args.seed)
+
+    if args.resume:
+        # a light checkpoint leaves the fresh, empty buffer of ``ts`` in place
+        ts, at_step = restore_checkpoint(f"{args.logdir}/ckpt", ts)
+        print(f"resumed from checkpoint at env step {at_step}", flush=True)
+
+    logger = MetricLogger(args.logdir, config=vars(args))
+    steps_per_block = args.rounds_per_block * cfg.train_freq * cfg.num_envs
+    block = 0
+    best_eval = float("-inf")
+    t0 = time.time()
+    while ts.env_steps * cfg.num_envs < args.total_steps:
+        ts, reward_sum = learner.train_rounds(ts, args.rounds_per_block)
+        block += 1
+        reward = float(reward_sum)  # waits for the device: time the real work
+        sps = steps_per_block / max(1e-9, time.time() - t0)
+        env_steps = ts.env_steps * cfg.num_envs
+        metrics = dict(
+            env_steps=env_steps,
+            grad_steps=ts.grad_steps,
+            collect_reward_per_step=reward / steps_per_block,
+            steps_per_second=sps,
+        )
+        if args.eval_every_blocks and block % args.eval_every_blocks == 0:
+            stats = learner.eval_policy_stats(ts, n_steps=args.eval_steps, num_envs=args.eval_envs)
+            eval_metrics, score = score_eval_stats(stats, args.best_metric)
+            metrics.update(eval_metrics)
+            if score > best_eval:
+                best_eval = score
+                export_policy(learner, ts, f"{args.logdir}/policy_best", extra_meta=in_run_eval_meta(
+                    args.env, args.best_metric, score, stats, learner.eval_seed(ts),
+                    args.eval_steps, args.eval_envs))
+            if ts.buffer.size > 0:  # wandb.watch analog (needs data)
+                metrics.update(learner.watch(ts))
+        logger.log(env_steps, **metrics)
+        print({k: round(v, 3) if isinstance(v, float) else v for k, v in metrics.items()}, flush=True)
+        if args.checkpoint_every_blocks and block % args.checkpoint_every_blocks == 0:
+            save_checkpoint(f"{args.logdir}/ckpt", ts, env_steps,
+                            include_buffer=not args.light_checkpoints)
+        t0 = time.time()  # exclude eval/checkpoint from the next block's rate
+    save_checkpoint(f"{args.logdir}/ckpt", ts, ts.env_steps * cfg.num_envs,
+                    include_buffer=not args.light_checkpoints)
+    export_policy(learner, ts, f"{args.logdir}/policy")
+    logger.close()
+    return learner, ts
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,426 @@
+"""SAC learner with CAPS action-smoothness regularization — port of
+``usv_tpu/train/sac.py``.
+
+Re-implements the training capability of the reference's patched SB3 SAC
+(``train_test/config.py:17-37``): twin critics, auto-tuned entropy
+temperature, soft target updates, ``train_freq = gradient_steps = 8``,
+400x300 nets, lr 1e-4, buffer 400k, batch 256, learning_starts 50k — plus the
+CAPS smoothness terms implied by ``lambda_t/lambda_s/eps_s`` (config.py:34-36;
+CAPS = "Regularizing Action Policies for Smooth Control", Mysore et al.):
+
+    L_T = lambda_t * E ||pi(s_t) - pi(s_{t+1})||^2        (temporal)
+    L_S = lambda_s * E ||pi(s) - pi(s~)||^2, s~ ~ N(s, eps_s)  (spatial)
+
+Against the JAX learner: one {collect ``train_freq`` env steps -> insert ->
+``gradient_steps`` updates} round is a Python loop of eager tensor ops on the
+learner's device (the card unless the env handle names another); envs, replay
+buffer and networks stay there. The train state is a mutable object that the
+methods update in place and return. JAX's ``lax.cond``s are host decisions on
+host counters (the warm-up phase, the update gate on the buffer's fill), so
+nothing is read back from the device. Gradients come from autograd
+(``torch.autograd.grad`` on the network being stepped, so no gradient reaches
+another), optimizers from ``torch.optim.Adam`` with optax's constants.
+
+Randomness: one ``torch.Generator`` per run on the learner's device feeds the
+resets, the warm-up actions, the gSDE matrices, the replay indices and the
+update noise. Where the JAX learner splits a key, the collect and update
+functions take an optional ``draws`` argument holding the draws themselves,
+so that a test hands both sides the same numbers. Eval and ``watch`` draw
+from generators seeded by :func:`~usv_tpu_torch.train.common.derived_seed`
+(the run's seed and counters), never from the training stream: a run that
+evaluates trains exactly as one that does not.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import warnings
+from typing import Optional, Tuple
+
+import torch
+
+from usv_tpu_torch.envs.registry import EnvHandle
+from usv_tpu_torch.models.mlp import DoubleCritic, SquashedGaussianActor
+from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
+from usv_tpu_torch.train.buffer import ReplayBuffer, buffer_add_batch, buffer_init, buffer_sample
+from usv_tpu_torch.train.common import (
+    adam,
+    derived_seed,
+    eval_stats,
+    global_norm,
+    linear_schedule,
+    new_generator,
+    seeded_init,
+    step_with,
+)
+from usv_tpu_torch.vector.batch import BatchedEnv, BatchState
+
+EVAL_TAG, WATCH_TAG = 7, 13  # JAX's fold_in(ts.key, 7) and fold_in(ts.key, 13)
+
+
+@dataclasses.dataclass(frozen=True)
+class SacConfig:
+    # SB3-matching hyperparameters (train_test/config.py:17-37)
+    buffer_size: int = 400_000
+    batch_size: int = 256
+    learning_rate: float = 1e-4
+    # optional linear lr decay over the first lr_decay_steps GRADIENT steps
+    # (to lr * lr_final_fraction, held constant after); the reference uses a
+    # constant lr (config.py:23)
+    lr_decay_steps: Optional[int] = None
+    lr_final_fraction: float = 0.1
+    gamma: float = 0.99
+    tau: float = 0.005          # SB3 default (config passes none)
+    train_freq: int = 8
+    gradient_steps: int = 8
+    learning_starts: int = 50_000
+    hidden: Tuple[int, int] = (400, 300)
+    log_std_init: float = -3.0
+    # CAPS smoothness (config.py:34-36)
+    lambda_t: float = 10.0
+    lambda_s: float = 5.0
+    eps_s: float = 0.1
+    # gSDE exploration (config.py:18-19; SB3 use_sde + sde_sample_freq):
+    # updates use the exact marginal distribution, collection noise is
+    # temporally smooth via exploration matrices
+    use_sde: bool = True
+    sde_sample_freq: int = 4
+    # vector-env setup
+    num_envs: int = 64
+    frame_stack: int = 5        # FrameStack(5), sb3_train.py:51
+    # compute_dtype="bfloat16" runs the MLP trunks in bfloat16 (parameters
+    # and Adam state stay float32). update_fusion=k folds k of the
+    # gradient_steps sequential updates into one update on a k*batch_size
+    # batch; fused_updates=True is full fusion (k = gradient_steps).
+    compute_dtype: str = "float32"
+    fused_updates: bool = False
+    update_fusion: int = 1
+    # shard-local replay belongs to the data-parallel layer (Slice F), which
+    # is not ported: True raises
+    shard_local_replay: bool = False
+    # action bounds; None derives them from the env config
+    action_low: Optional[Tuple[float, ...]] = None
+    action_high: Optional[Tuple[float, ...]] = None
+    # numerical guard (utils/guards.py): diverged envs terminate (reward 0,
+    # sanitized obs) and auto-reset; info["diverged"] counts them
+    sanitize_envs: bool = True
+
+
+@dataclasses.dataclass
+class SacTrainState:
+    actor: SquashedGaussianActor
+    critic: DoubleCritic
+    target_critic: DoubleCritic
+    log_alpha: torch.Tensor         # () float32, optimized in place
+    actor_opt: torch.optim.Adam
+    critic_opt: torch.optim.Adam
+    alpha_opt: torch.optim.Adam
+    buffer: ReplayBuffer
+    batch: BatchState               # env state and the (B, S, obs_dim) frame stack
+    generator: torch.Generator      # the training stream
+    seed: int
+    env_steps: int = 0              # collect steps taken (each by all num_envs envs)
+    grad_steps: int = 0             # updates made
+    sde: Optional[SdeState] = None  # when cfg.use_sde
+
+
+class SacLearner:
+    """Actor-learner bound to one env family on the handle's device."""
+
+    def __init__(self, handle: EnvHandle, config: SacConfig = SacConfig()):
+        if config.shard_local_replay:
+            raise NotImplementedError(
+                "shard_local_replay needs the data-parallel layer (Slice F: parallel/, "
+                "buffer_add_traj_local, buffer_sample_local), which usv_tpu_torch does not "
+                "port yet")
+        self.handle = handle
+        self.cfg = config
+        self.device = handle.device
+        env_cfg = handle.cfg
+        self.obs_dim = env_cfg.obs_dim * max(1, config.frame_stack)
+        self.act_dim = env_cfg.action_dim
+        self.action_low = tuple(config.action_low if config.action_low is not None
+                                else env_cfg.action_low)
+        self.action_high = tuple(config.action_high if config.action_high is not None
+                                 else env_cfg.action_high)
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        self.target_entropy = -float(self.act_dim)  # SB3 'auto'
+        if config.lr_decay_steps:
+            self.lr_at = linear_schedule(config.learning_rate,
+                                         config.learning_rate * config.lr_final_fraction,
+                                         config.lr_decay_steps)
+        else:
+            self.lr_at = lambda count: config.learning_rate
+
+        self._fusion = config.gradient_steps if config.fused_updates else max(1, config.update_fusion)
+        if config.gradient_steps % self._fusion:
+            raise ValueError(f"update_fusion={self._fusion} must divide "
+                             f"gradient_steps={config.gradient_steps}")
+        # the replay capacity is a multiple of the per-round write block
+        # (train_freq * num_envs rows): every insert is an aligned slice copy
+        block = config.train_freq * config.num_envs
+        self.buffer_capacity = -(-config.buffer_size // block) * block
+        if self.buffer_capacity != config.buffer_size:
+            warnings.warn(
+                f"replay capacity rounded {config.buffer_size} -> "
+                f"{self.buffer_capacity} (multiple of train_freq*num_envs="
+                f"{block} for aligned writes). Checkpoints depend on the "
+                "exact capacity — keep train_freq/num_envs fixed across "
+                "save/resume, or set buffer_size to a multiple yourself."
+            )
+        self.benv = BatchedEnv(handle, config.num_envs, frame_stack=max(1, config.frame_stack),
+                               sanitize=config.sanitize_envs)
+        self._low = torch.tensor(self.action_low, dtype=torch.float32, device=self.device)
+        self._high = torch.tensor(self.action_high, dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------ init
+
+    def build_actor(self) -> SquashedGaussianActor:
+        """A fresh actor of this learner's architecture and compute dtype."""
+        cfg = self.cfg
+        return SquashedGaussianActor(
+            self.obs_dim, self.act_dim, hidden=cfg.hidden, log_std_init=cfg.log_std_init,
+            action_low=self.action_low, action_high=self.action_high, use_sde=cfg.use_sde,
+            compute_dtype=self.compute_dtype)
+
+    def init(self, seed: int = 0) -> SacTrainState:
+        """Networks initialized from ``seed`` (on the CPU, then moved: the
+        same weights on every device), fresh envs, an empty buffer."""
+        cfg = self.cfg
+        with seeded_init(seed):
+            actor = self.build_actor()
+            critic = DoubleCritic(self.obs_dim, self.act_dim, cfg.hidden,
+                                  compute_dtype=self.compute_dtype)
+        actor.to(self.device)
+        critic.to(self.device)
+        target = copy.deepcopy(critic).requires_grad_(False)
+        generator = new_generator(seed, self.device)
+        batch, _ = self.benv.reset(generator)
+        sde = None
+        if cfg.use_sde:
+            sde = init_sde(generator, cfg.hidden[-1], self.act_dim, (cfg.num_envs,), self.device)
+        log_alpha = torch.zeros((), device=self.device, requires_grad=True)
+        lr = self.lr_at(0)
+        return SacTrainState(
+            actor=actor, critic=critic, target_critic=target, log_alpha=log_alpha,
+            actor_opt=adam(actor.parameters(), lr), critic_opt=adam(critic.parameters(), lr),
+            alpha_opt=adam([log_alpha], lr),
+            buffer=buffer_init(self.buffer_capacity, self.obs_dim, self.act_dim, device=self.device),
+            batch=batch, generator=generator, seed=int(seed), sde=sde,
+        )
+
+    # ----------------------------------------------------------- collection
+
+    def _policy_action(self, ts: SacTrainState, obs, random_phase: bool, draws: dict):
+        """Uniform in [low, high] during warm-up (``draws["uniform_actions"]``
+        are the actions themselves), else a squashed-Gaussian sample: gSDE's
+        exploration matrices, or per-step noise (``draws["noise"]``)."""
+        if random_phase:
+            actions = draws.get("uniform_actions")
+            if actions is None:
+                u = torch.rand((obs.shape[0], self.act_dim), generator=ts.generator, device=obs.device)
+                actions = u * (self._high - self._low) + self._low
+            return actions
+        if self.cfg.use_sde:
+            return ts.actor.sample_sde(obs, ts.sde)
+        return ts.actor.sample(obs, generator=ts.generator, noise=draws.get("noise"))[0]
+
+    @torch.no_grad()
+    def _env_cycle(self, ts: SacTrainState, draws=None):
+        """``train_freq`` env steps on all envs, then ONE aligned buffer
+        insert of the ``(train_freq * num_envs)`` rows, step-major.
+
+        ``draws``: one dict per step, any of ``resample`` (the gSDE normals,
+        drawn every step as in JAX), ``uniform_actions``, ``noise`` and
+        ``reset`` (the auto-reset's uniform block). Returns ``(ts, reward
+        sum)``, the sum a 0-d device tensor.
+        """
+        cfg = self.cfg
+        B = cfg.num_envs
+        # threshold in collect-step units, as JAX (env_steps * num_envs could overflow)
+        warmup_steps = -(-cfg.learning_starts // B)
+        rows = {name: [] for name in ReplayBuffer.FIELDS}
+        rewards = []
+        for t in range(cfg.train_freq):
+            d = draws[t] if draws is not None else {}
+            frames = ts.batch.frames
+            obs = frames.reshape(B, -1)
+            if cfg.use_sde:
+                ts.sde = maybe_resample(ts.sde, ts.generator, cfg.sde_sample_freq,
+                                        normals=d.get("resample"))
+            actions = self._policy_action(ts, obs, ts.env_steps < warmup_steps, d)
+            ts.batch, step = self.benv.step(ts.batch, actions, generator=ts.generator,
+                                            uniform=d.get("reset"))
+            # next_obs: the frame stack continued with the terminal observation,
+            # not the reset one; done is terminated only (truncation bootstraps)
+            terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
+            for name, value in (("obs", obs), ("action", actions), ("reward", step.reward),
+                                ("next_obs", terminal.reshape(B, -1)),
+                                ("done", step.terminated.to(torch.float32))):
+                rows[name].append(value)
+            rewards.append(step.reward.sum())
+            ts.env_steps += 1
+        buffer_add_batch(ts.buffer, *(torch.cat(rows[name]) for name in ReplayBuffer.FIELDS),
+                         aligned=True)
+        return ts, torch.stack(rewards).sum()
+
+    # -------------------------------------------------------------- updates
+
+    def _update_draws(self, ts: SacTrainState, batch_size: int, generator) -> dict:
+        """The draws of one update: replay indices, the target's sample noise,
+        the actor's sample noise and the CAPS spatial noise."""
+        dev = self.device
+        return dict(
+            idx=torch.randint(0, max(ts.buffer.size, 1), (batch_size,), generator=generator,
+                              device=dev),
+            noise_next=torch.randn((batch_size, self.act_dim), generator=generator, device=dev),
+            noise_actor=torch.randn((batch_size, self.act_dim), generator=generator, device=dev),
+            noise_spatial=torch.randn((batch_size, self.obs_dim), generator=generator, device=dev),
+        )
+
+    def _critic_loss(self, ts: SacTrainState, batch, noise_next):
+        """Twin-Q regression on the soft target (pre-update actor, current
+        alpha, target critic), computed without a graph."""
+        cfg = self.cfg
+        with torch.no_grad():
+            next_action, next_logp, _ = ts.actor.sample(batch["next_obs"], noise=noise_next)
+            q1_t, q2_t = ts.target_critic(batch["next_obs"], next_action)
+            alpha = torch.exp(ts.log_alpha)
+            target_v = torch.minimum(q1_t, q2_t) - alpha * next_logp
+            target_q = batch["reward"] + cfg.gamma * (1.0 - batch["done"]) * target_v
+        q1, q2 = ts.critic(batch["obs"], batch["action"])
+        return 0.5 * (torch.square(q1 - target_q).mean() + torch.square(q2 - target_q).mean())
+
+    def _actor_loss(self, ts: SacTrainState, batch, noise_actor, noise_spatial):
+        """-> (loss, (mean log-prob, SAC loss, CAPS temporal, CAPS spatial)).
+
+        The sample's mean action is ``deterministic(obs)`` (the same
+        operations), so the CAPS terms reuse it instead of a fourth trunk
+        forward."""
+        cfg = self.cfg
+        action, logp, mu_s = ts.actor.sample(batch["obs"], noise=noise_actor)
+        q1, q2 = ts.critic(batch["obs"], action)
+        alpha = torch.exp(ts.log_alpha).detach()
+        sac_loss = (alpha * logp - torch.minimum(q1, q2)).mean()
+        mu_next = ts.actor.deterministic(batch["next_obs"])
+        mu_noisy = ts.actor.deterministic(batch["obs"] + cfg.eps_s * noise_spatial)
+        caps_t = torch.square(mu_s - mu_next).sum(-1).mean()
+        caps_s = torch.square(mu_s - mu_noisy).sum(-1).mean()
+        loss = sac_loss + cfg.lambda_t * caps_t + cfg.lambda_s * caps_s
+        return loss, (logp.mean(), sac_loss, caps_t, caps_s)
+
+    def _update_once(self, ts: SacTrainState, batch_size: Optional[int] = None, draws=None):
+        """One update: the critic steps first; the actor loss then sees the
+        UPDATED critic; the temperature steps on the actor loss's mean
+        log-prob; the target critic blends in the new critic. ``draws``
+        (:meth:`_update_draws`'s dict) replaces the draws from the training
+        generator."""
+        cfg = self.cfg
+        batch_size = batch_size or cfg.batch_size
+        d = draws if draws is not None else self._update_draws(ts, batch_size, ts.generator)
+        batch = buffer_sample(ts.buffer, batch_size, idx=d["idx"])
+        lr = self.lr_at(ts.grad_steps)
+
+        critic_params = list(ts.critic.parameters())
+        grads = torch.autograd.grad(self._critic_loss(ts, batch, d["noise_next"]), critic_params)
+        step_with(ts.critic_opt, critic_params, grads, lr)
+
+        actor_params = list(ts.actor.parameters())
+        loss, (mean_logp, _, _, _) = self._actor_loss(ts, batch, d["noise_actor"], d["noise_spatial"])
+        grads = torch.autograd.grad(loss, actor_params)
+        step_with(ts.actor_opt, actor_params, grads, lr)
+
+        # temperature: the gradient of -log_alpha * (mean_logp + target_entropy)
+        step_with(ts.alpha_opt, [ts.log_alpha], [-(mean_logp.detach() + self.target_entropy)], lr)
+
+        with torch.no_grad():
+            target = list(ts.target_critic.parameters())
+            torch._foreach_mul_(target, 1.0 - cfg.tau)
+            torch._foreach_add_(target, torch._foreach_mul(critic_params, cfg.tau))
+        ts.grad_steps += 1
+        return ts
+
+    # ----------------------------------------------------------- train loop
+
+    def updates_per_round(self) -> int:
+        return self.cfg.gradient_steps // self._fusion
+
+    def train_rounds(self, ts: SacTrainState, n_rounds: int):
+        """``n_rounds`` x {train_freq env steps + gradient_steps updates}.
+        Returns ``(state, summed reward)``, the sum a 0-d device tensor.
+
+        The warm-up gate is on the BUFFER FILL (a host integer), not the
+        env-step counter: after a light-checkpoint resume (an empty buffer, a
+        restored counter) only the fill gate re-warms properly."""
+        cfg = self.cfg
+        rewards = []
+        for _ in range(n_rounds):
+            ts, reward_sum = self._env_cycle(ts)
+            rewards.append(reward_sum)
+            if ts.buffer.size >= min(cfg.learning_starts, cfg.buffer_size):
+                for _ in range(self.updates_per_round()):
+                    self._update_once(ts, batch_size=self._fusion * cfg.batch_size)
+        return ts, torch.stack(rewards).sum()
+
+    # ---------------------------------------------------------- diagnostics
+
+    def watch(self, ts: SacTrainState) -> dict:
+        """Gradient/parameter diagnostics — the analog of the reference's
+        ``wandb.watch`` (wandb_callback.py:126-131): global L2 norms of the
+        actor/critic parameters and of their gradients on one diagnostic
+        replay batch, the loss terms, the temperature and the sampled-policy
+        entropy. Steps nothing and draws from its own generator; only
+        meaningful once the buffer holds data. One read-back."""
+        g = new_generator(derived_seed(ts.seed, ts.env_steps, ts.grad_steps, WATCH_TAG), self.device)
+        d = self._update_draws(ts, self.cfg.batch_size, g)
+        batch = buffer_sample(ts.buffer, self.cfg.batch_size, idx=d["idx"])
+        critic_params, actor_params = list(ts.critic.parameters()), list(ts.actor.parameters())
+        critic_loss = self._critic_loss(ts, batch, d["noise_next"])
+        critic_grads = torch.autograd.grad(critic_loss, critic_params)
+        actor_loss, (mean_logp, sac_loss, caps_t, caps_s) = self._actor_loss(
+            ts, batch, d["noise_actor"], d["noise_spatial"])
+        actor_grads = torch.autograd.grad(actor_loss, actor_params)
+        values = dict(
+            actor_param_norm=global_norm(actor_params),
+            critic_param_norm=global_norm(critic_params),
+            actor_grad_norm=global_norm(actor_grads),
+            critic_grad_norm=global_norm(critic_grads),
+            critic_loss=critic_loss,
+            actor_loss=actor_loss,
+            sac_actor_loss=sac_loss,
+            caps_temporal=caps_t,
+            caps_spatial=caps_s,
+            policy_entropy=-mean_logp,
+            alpha=torch.exp(ts.log_alpha),
+        )
+        host = torch.stack([v.detach().float() for v in values.values()]).tolist()
+        return dict(zip(values, host))
+
+    # ----------------------------------------------------------- evaluation
+
+    def eval_seed(self, ts: SacTrainState) -> int:
+        """The seed of the eval at this point of the run (from the run's seed
+        and counters; nothing is drawn)."""
+        return derived_seed(ts.seed, ts.env_steps, ts.grad_steps, EVAL_TAG)
+
+    def eval_policy(self, ts: SacTrainState, n_steps: int = 500, num_envs: int = 16) -> float:
+        """Deterministic-policy rollout; returns mean reward per step."""
+        return self.eval_policy_stats(ts, n_steps, num_envs)["reward_per_step"]
+
+    def eval_policy_stats(self, ts: SacTrainState, n_steps: int = 500, num_envs: int = 16) -> dict:
+        """Deterministic eval with outcome counts: ``reward_per_step`` plus
+        ``episodes``/``terminations``/``truncations`` (and ``arriveds``/
+        ``collisions`` where the env reports them), so that model selection
+        can use the task metric."""
+        return self.eval_policy_stats_at(ts.actor, self.eval_seed(ts), n_steps, num_envs)
+
+    def eval_policy_stats_at(self, actor: SquashedGaussianActor, seed: int, n_steps: int = 500,
+                             num_envs: int = 16) -> dict:
+        """The exact :meth:`eval_policy_stats` program for any actor under an
+        explicit seed — lets a bundle's recorded in-run eval be replayed bit
+        for bit against the exported parameters (``run_eval
+        --replay-recorded-eval``)."""
+        benv = BatchedEnv(self.handle, num_envs, frame_stack=max(1, self.cfg.frame_stack),
+                          sanitize=self.cfg.sanitize_envs)
+        return eval_stats(benv, seed, actor.deterministic, n_steps)
