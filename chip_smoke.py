@@ -5,8 +5,9 @@
 Drives the port's main paths — ``usv-simple``, the collision-avoidance env
 ``usv-asmc-ca-v0`` and the curved-path env ``usv-curved-aitsmc`` at 4096
 lockstep envs, zero actions, auto-reset, obs consumed every step, the
-serving of a policy bundle over 4096 envs, and SAC and PPO training at the
-at-scale recipes' widths — through the entry points a user calls (``make``,
+serving of a policy bundle over 4096 envs, SAC and PPO training at the
+at-scale recipes' widths, and seed populations of both at the robust
+recipes' widths — through the entry points a user calls (``make``,
 ``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
 ``load_policy``, ``batch_policy_metrics``, ``run_sac.main``,
 ``run_ppo.main``), after building the ray-cast
@@ -67,12 +68,36 @@ version on the card. Phases, each of which exits non-zero on failure:
 12. one SAC update and one PPO minibatch step from one state and one set of
     draws on the card and on the CPU: gradients within 1e-4 of the largest
     entry, parameters after the step within 2 x lr;
-13. the kernel's device time (CUDA events around a replayed CUDA graph)
+13. the SAC seed population: ``run_sac.main`` with ``--recipe robust`` on
+    ``usv-simple`` at full width (4 seeds x 1024 envs as one batch of 4096
+    rows, 131,072 replay rows a seed: 3,007,315,968 bytes on the card), its
+    depth cut to 4 rounds, short evals and 2 selection evals, with the cull
+    at half the budget; the selection (2 candidates, the winner their
+    argmax), the winner's selection eval replayed exactly, the kernel
+    against its plain version on the population's live state before the
+    cull (B=4096 R=128 K=32), the launches counted;
+14. the population's anatomy at S = 1, 2 and 4 (SAC at the robust widths,
+    PPO at the robust widths on the CA env): aten calls, device kernels and
+    device time per collect step and per update, the counts at S = 4 within
+    1.5x of S = 1;
+15. member 1 of a 2-seed SAC population against a single learner seeded 1,
+    on the card, through one round: its rows bit for bit, the first
+    update's gradients within 2e-6 of the largest entry, the parameters
+    after it within 2 x lr; the drift after a second round reported;
+16. the PPO seed population: ``run_ppo.main`` with ``--recipe robust`` on
+    ``usv-asmc-ca-v0`` (4 seeds x 256 envs, minibatch 2048), ``--n-steps``
+    cut to 64 and two iterations; the kernel against its plain version on
+    its live state (B=1024 R=16 K=16), the replayed selection eval, and the
+    clipping of each member's gradient by its own norm;
+17. the device half of a video (``rollout_trace``) for ``usv-simple`` and
+    the CA env on the card against the CPU (rendering, which needs pygame
+    and cv2 or imageio on the host, is held on the CPU by the tests);
+18. the kernel's device time (CUDA events around a replayed CUDA graph)
     beside its plain version's and its bound (the bytes, or the operations
     on the pairs this data needs, counted on the card), at the shapes the
-    system launches on live states (the three env paths' and the two
-    learners'), and with ``n_acc`` 1, 2 and 4, with no slot valid and for
-    an empty kernel of the same grid.
+    system launches on live states (the three env paths', the two
+    learners' and the two populations'), and with ``n_acc`` 1, 2 and 4,
+    with no slot valid and for an empty kernel of the same grid.
 
 Every phase heading prints the seconds since the script started.
 
@@ -111,6 +136,14 @@ SAC_EVAL_STEPS = 100
 PPO_N_STEPS = 64    # run_ppo at-scale on the CA env: the rollout depth, cut from 2048
 PPO_ITERS = 2
 PPO_EVAL_STEPS = 32
+POP_SEEDS = 4       # --recipe robust: the population's default width
+POP_BLOCKS = 4      # run_sac --recipe robust: blocks of one round (64 x 1024 env-steps per seed)
+POP_EVAL_STEPS = 32
+POP_SELECT_EVALS = 2
+PPO_POP_ITERS = 2   # run_ppo --recipe robust on the CA env, --n-steps cut to PPO_N_STEPS
+PPO_POP_EVAL_STEPS = 16
+ANATOMY_SEEDS = (1, 2, 4)
+TRACE_STEPS = 48    # the video rollout's trace, card against CPU
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -1184,6 +1217,338 @@ def update_card_vs_cpu(sac, sac_ts, ppo, ppo_ts, mb):
     return {"update_card_vs_cpu": out}
 
 
+def sac_population(device, card, rc, tmp):
+    """Phase 13: ``run_sac --recipe robust`` on ``usv-simple`` at full width:
+    4 seeds of 1024 envs in one batched program (4096 env rows a collect
+    step), train_freq 64, gradient_steps 64, update_fusion 4, the recipe's
+    100,000-row buffer per seed rounded to 131,072, the default
+    learning_starts. Depth cut: 4 blocks of one round (the default block is
+    200 rounds), evals of 32 steps every 2 blocks, 2 selection evals, and the
+    cull at half the budget, so that the cull runs. Then the selection, the
+    winner's replayed selection eval, and the kernel against its plain
+    version on the population's live state before the cull (B=4096 R=128
+    K=32). Returns the record's keys, the largest kernel-vs-plain difference
+    and that live state."""
+    from usv_tpu_torch.train import run_sac
+    from usv_tpu_torch.train.sac import SacLearner
+
+    t_phase = time.perf_counter()
+    round_steps = 64 * 1024
+    logdir = f"{tmp}/sac_robust"
+    argv = ["--recipe", "robust", "--env", "usv-simple", "--rounds-per-block", "1",
+            "--total-steps", str(POP_BLOCKS * round_steps), "--eval-every-blocks", "2",
+            "--eval-steps", str(POP_EVAL_STEPS), "--select-evals", str(POP_SELECT_EVALS),
+            "--cull-at-frac", "0.5", "--checkpoint-every-blocks", "0", "--logdir", logdir]
+    print(f"  cut to size: {POP_BLOCKS} blocks of 1 round (the CLI's default block is 200), evals of "
+          f"{POP_EVAL_STEPS} steps every 2 blocks (default 500 every 5), {POP_SELECT_EVALS} selection "
+          "evals (default 3), --cull-at-frac 0.5; every width as the recipe", flush=True)
+    seen = {}
+    take = SacLearner.take_members
+
+    def spy(self, ps, keep):  # the population as the cull finds it
+        seen.update(env=ps.batch.env, rows=ps.batch.frames.shape[0], buffer_bytes=ps.buffer.nbytes(),
+                    capacity=ps.buffer.capacity, seeds=list(ps.seeds), keep=list(keep))
+        return take(self, ps, keep)
+
+    rc.counter.launches = 0
+    SacLearner.take_members = spy
+    t0 = time.perf_counter()
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="replay capacity rounded")
+            learner, ps = run_sac.main(argv)
+    finally:
+        SacLearner.take_members = take
+    seconds = time.perf_counter() - t0
+    launches = rc.counter.launches
+    cfg = learner.cfg
+    check((cfg.num_envs, cfg.train_freq, cfg.gradient_steps, cfg.update_fusion, cfg.learning_rate,
+           cfg.hidden, cfg.frame_stack, cfg.use_sde, cfg.learning_starts)
+          == (1024, 64, 64, 4, 3e-4, (400, 300), 5, True, 50_000), f"the robust recipe resolved to {cfg}")
+    check(seen.get("rows") == POP_SEEDS * 1024 and seen["seeds"] == list(range(POP_SEEDS)),
+          f"the cull found {seen.get('rows')} env rows of seeds {seen.get('seeds')}")
+    want_bytes = POP_SEEDS * 131_072 * (2 * 715 + 2 + 2) * 4
+    check(seen["capacity"] == 131_072 and seen["buffer_bytes"] == want_bytes,
+          f"population replay {seen['capacity']} rows, {seen['buffer_bytes']} bytes (want {want_bytes})")
+    check(len(ps.seeds) == 2 and ps.batch.frames.device.type == "cuda", f"after the cull: seeds {ps.seeds}")
+    evals = POP_BLOCKS // 2
+    expected = (POP_BLOCKS * cfg.train_freq + evals * POP_EVAL_STEPS
+                + 2 * POP_SELECT_EVALS * POP_EVAL_STEPS)
+    check(launches == expected, f"SAC population: {launches} kernel launches, expected {expected}")
+    check(all(bool(torch.isfinite(p).all()) for p in ps.actor.params + ps.critic.params)
+          and bool(torch.isfinite(ps.log_alpha).all()), "non-finite population parameters")
+    meta = json.load(open(f"{logdir}/policy_best/policy.json"))
+    pop = meta["population"]
+    sel = {s["seed"]: s["select_mean"] for s in pop["selection"]}
+    check(len(pop["selection"]) == 2 and sel[pop["winner_seed"]] == max(sel.values()),
+          f"selection {sel}, winner {pop['winner_seed']}")
+    lines = [json.loads(line) for line in open(f"{logdir}/metrics.jsonl")]
+    rates = [x["aggregate_steps_per_second"] for x in lines]
+    print(f"  run_sac --recipe robust: {POP_SEEDS} seeds x 1024 envs, {POP_BLOCKS} rounds of "
+          f"{round_steps} env-steps per seed, {seconds:.2f} s with evals, the cull, the selection and "
+          f"the exports; aggregate env-steps/s including updates per block {[round(r, 1) for r in rates]} "
+          f"on {card}", flush=True)
+    print(f"  replay {POP_SEEDS} x {seen['capacity']} rows = {seen['buffer_bytes']} bytes on the card; "
+          f"cull kept seeds {[seen['seeds'][i] for i in seen['keep']]}; selection {sel}, winner seed "
+          f"{pop['winner_seed']}; kernel launches {launches} = {POP_BLOCKS} x {cfg.train_freq} collect "
+          f"steps + {evals} evals x {POP_EVAL_STEPS} + 2 candidates x {POP_SELECT_EVALS} x "
+          f"{POP_EVAL_STEPS}", flush=True)
+    max_err = check_kernel_on_live_state("usv-simple", learner.handle.cfg, seen["env"])
+    replay_gap = replay_best("SAC population", "usv-simple", logdir)
+    check(replay_gap == 0.0, f"the winner's selection eval replayed {replay_gap} away")
+    return {"sac_population_launches": launches, "sac_population_seeds": POP_SEEDS,
+            "sac_population_rounds": POP_BLOCKS, "sac_population_block_env_steps_per_s": rates,
+            "sac_population_replay_bytes": seen["buffer_bytes"], "sac_population_seconds": seconds,
+            "sac_population_selection": sel, "sac_population_winner_seed": pop["winner_seed"],
+            "sac_population_replay_gap": replay_gap, "sac_population_kernel_max_abs_err": max_err,
+            "sac_population_seconds_phase": time.perf_counter() - t_phase}, max_err, seen["env"]
+
+
+def population_anatomy(device, card):
+    """Phase 14: aten calls, device kernels and device time per population
+    collect step and per population update at S = 1, 2 and 4 members: SAC
+    at the robust recipe's widths on ``usv-simple`` (1024 envs a member,
+    updates of batch 1024 a member, learning_starts 0 so that the actor
+    acts, 65,536 replay rows a member), and PPO at the robust widths on the
+    CA env (256 envs a member, minibatches of 2048 rows a member). Depth cut
+    to keep the profiler's cost down: SAC rounds of 8 collect steps (the
+    recipe's 64; the round's one buffer insert is then shared by 8 steps),
+    PPO rollouts of 2 steps profiled (their stacking and bootstrap value
+    shared by 2) and of 8 for the minibatch. The counts at S = 4 must stay
+    within 1.5x of S = 1: a loop over members would give ~4x."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.ppo import PpoConfig, PpoLearner
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    t_phase = time.perf_counter()
+    out = {"sac": {}, "ppo": {}}
+    sac = SacLearner(make("usv-simple"), SacConfig(
+        buffer_size=65_536, learning_starts=0, num_envs=1024, train_freq=8, gradient_steps=8,
+        update_fusion=4, learning_rate=3e-4))
+    ca = make("usv-asmc-ca-v0")
+    ppo = PpoLearner(ca, PpoConfig(n_steps=8, batch_size=2048, num_envs=256))
+    short = PpoLearner(ca, PpoConfig(n_steps=2, batch_size=2048, num_envs=256))
+    for S in ANATOMY_SEEDS:
+        ps = sac.init_many(range(S))
+        sac._env_cycle_many(ps)
+        collect = per_step(learner_anatomy(lambda: sac._env_cycle_many(ps), 1), sac.cfg.train_freq)
+        update = learner_anatomy(lambda: sac._update_once_many(ps, 1024), 4)
+        out["sac"][S] = {"collect_step": collect, "update": update}
+        del ps
+        pp = ppo.init_many(range(S))
+        col = per_step(learner_anatomy(lambda: short._collect_many(pp), 1), short.cfg.n_steps)
+        pp, traj, last = ppo._collect_many(pp)
+        advs, rets = ppo._gae(traj, last, ppo.cfg.gamma, ppo.cfg.gae_lambda)
+        draw, batches, _ = ppo._minibatches_many(pp, traj, advs, rets)
+        mb = {k: v[:, 0] for k, v in batches(draw()).items()}
+        step = learner_anatomy(lambda: ppo._minibatch_step_many(pp, mb), 4)
+        out["ppo"][S] = {"collect_step": col, "minibatch_step": step}
+        del pp, traj, mb
+        for name, a in (("SAC collect step", collect), ("SAC update", update),
+                        ("PPO collect step", col), ("PPO minibatch step", step)):
+            print(f"  S={S} {name}: {a['aten_calls']:.0f} aten calls, {a['device_kernels']:.0f} device "
+                  f"kernels, device busy {a['device_ms']:.4f} ms of {a['wall_ms']:.4f} ms (idle share "
+                  f"{a['idle_share']:.3f})", flush=True)
+    ratios = {}
+    for kind, parts in (("sac", ("collect_step", "update")), ("ppo", ("collect_step", "minibatch_step"))):
+        for part in parts:
+            r = out[kind][4][part]["aten_calls"] / out[kind][1][part]["aten_calls"]
+            ratios[f"{kind}_{part}"] = r
+            check(r <= 1.5, f"{kind} {part}: {r:.3f}x the aten calls at S=4 of S=1 (limit 1.5)")
+    print(f"  aten calls at S=4 over S=1: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+          + f" (limit 1.5) on {card}", flush=True)
+    return {"population_anatomy": {"seeds": list(ANATOMY_SEEDS), **out, "aten_ratio_s4_s1": ratios,
+                                   "seconds": time.perf_counter() - t_phase}}
+
+
+def member_vs_single(device):
+    """Phase 15: member 1 of a 2-seed SAC population against a single
+    learner seeded 1, on the card, through one round at the robust widths
+    (1024 envs, 64 collect steps and 16 updates of batch 1024; 65,536 replay
+    rows; learning_starts one round, so that the round's collect is all
+    warm-up). Held at the CPU tests' tolerances: the round's rows, env
+    states and draws bit for bit, the first update's gradients within 2e-6
+    of the largest entry, the parameters after it within 2 x lr. The
+    parameters after the round's 16 updates and a second round's obs are
+    reported: there the two sides' GEMMs (cuBLAS's batched against its
+    single) have passed through Adam, whose step is ``lr * sign(g)`` where
+    ``|g|`` is tiny, and through the sensor's tangencies."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.buffer import ReplayBuffer, buffer_sample, buffer_sample_many
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    t_phase = time.perf_counter()
+    learner = SacLearner(make("usv-simple"), SacConfig(
+        buffer_size=65_536, learning_starts=65_536, num_envs=1024, train_freq=64, gradient_steps=64,
+        update_fusion=4, learning_rate=3e-4))
+    B, bs = learner.cfg.num_envs, learner._fusion * learner.cfg.batch_size
+    ps, ts = learner.init_many([0, 1]), learner.init(1)
+    learner._env_cycle_many(ps)
+    learner._env_cycle(ts)
+    rows_equal = (all(torch.equal(getattr(ps.buffer, f)[1], getattr(ts.buffer, f)) for f in ReplayBuffer.FIELDS)
+                  and torch.equal(ps.batch.frames[B:], ts.batch.frames)
+                  and torch.equal(ps.generators[1].get_state(), ts.generator.get_state()))
+    check(rows_equal, "member 1's first-round rows, frames or generator differ from the single learner's")
+    draws = learner._update_draws_many(ps, bs)
+    d = learner._update_draws(ts, bs, ts.generator)
+    check(all(torch.equal(draws[k][1], d[k]) for k in d), "member 1's update draws differ")
+    pbatch = buffer_sample_many(ps.buffer, draws["idx"])
+    batch = buffer_sample(ts.buffer, bs, idx=d["idx"])
+    gaps = {}
+    for name, many, single, params, own in (
+            ("critic", lambda: learner._critic_loss_many(ps, pbatch, draws["noise_next"]),
+             lambda: learner._critic_loss(ts, batch, d["noise_next"]), ps.critic.params, ts.critic),
+            ("actor", lambda: learner._actor_loss_many(ps, pbatch, draws["noise_actor"],
+                                                       draws["noise_spatial"])[0],
+             lambda: learner._actor_loss(ts, batch, d["noise_actor"], d["noise_spatial"])[0],
+             ps.actor.params, ts.actor)):
+        got = [g[1] for g in torch.autograd.grad(many().sum(), params)]
+        want = torch.autograd.grad(single(), list(own.parameters()))
+        diff, scale = grad_gap([g.cpu() for g in got], [w.cpu() for w in want])
+        check(diff <= 2e-6 * scale, f"member 1's {name} gradients {diff} from the single learner's ({scale})")
+        gaps[name] = {"max_abs_diff": diff, "max_abs": scale}
+    learner._update_once_many(ps, bs, draws=draws)
+    learner._update_once(ts, bs, draws=d)
+
+    def param_diff():
+        return max(float((p[1] - q).detach().abs().max())
+                   for net in ("actor", "critic", "target_critic")
+                   for p, q in zip(getattr(ps, net).params, getattr(ts, net).parameters()))
+
+    first = param_diff()
+    lr = learner.lr_at(0)
+    check(first <= 2 * lr, f"member 1's parameters {first} from the single learner's after the first update")
+    for _ in range(learner.updates_per_round() - 1):
+        learner._update_once_many(ps, bs)
+        learner._update_once(ts, bs)
+    after_round = param_diff()
+    learner._env_cycle_many(ps)
+    learner._env_cycle(ts)
+    obs_diff = (ps.batch.frames[B:] - ts.batch.frames).abs()  # (B, 5, 143): sensor from 15
+    non_sensor = float(obs_diff[..., :15].max())
+    flips = int((obs_diff[..., 15:] > 1e-4).sum())
+    print(f"  member 1 of 2 against a single learner seeded 1, on the card: the first round's "
+          f"{ts.buffer.size} rows, frames and generator bit for bit; first update's gradients critic "
+          f"{gaps['critic']['max_abs_diff']:.3g} (largest {gaps['critic']['max_abs']:.3g}), actor "
+          f"{gaps['actor']['max_abs_diff']:.3g} (largest {gaps['actor']['max_abs']:.3g}); parameters "
+          f"after it {first:.3g} apart (bound 2 x lr = {2 * lr:.3g}), after the round's 16 updates "
+          f"{after_round:.3g}; after a second round (the actor acting) non-sensor obs {non_sensor:.3g} "
+          f"apart, {flips} of {obs_diff[..., 15:].numel()} sensor entries differ by > 1e-4", flush=True)
+    return {"member_vs_single": {"first_round_bitwise": rows_equal, "grad_gaps": gaps,
+                                 "param_diff_after_first_update": first,
+                                 "param_diff_after_round": after_round,
+                                 "second_round_non_sensor_obs_diff": non_sensor,
+                                 "second_round_sensor_flips": flips,
+                                 "seconds": time.perf_counter() - t_phase}}
+
+
+def ppo_population(device, card, rc, tmp):
+    """Phase 16: ``run_ppo --recipe robust`` on ``usv-asmc-ca-v0`` at full
+    width: 4 seeds of 256 envs (1024 env rows a collect step), minibatch
+    2048, 256x256, gSDE, frame_stack 5. Depth cut: ``--n-steps`` 64 (of
+    2048), two iterations, one eval of 16 steps, one selection eval. Then
+    the kernel against its plain version on the population's live state
+    (B=1024 R=16 K=16) and the clipping by each member's own norm on a
+    minibatch of the live population. Returns the record's keys, the largest
+    kernel-vs-plain difference and the live state."""
+    from usv_tpu_torch.train import run_ppo
+    from usv_tpu_torch.train.common import clip_by_global_norm_many
+
+    t_phase = time.perf_counter()
+    logdir = f"{tmp}/ppo_robust"
+    iter_steps = PPO_N_STEPS * 256
+    argv = ["--recipe", "robust", "--env", "usv-asmc-ca-v0", "--n-steps", str(PPO_N_STEPS),
+            "--total-steps", str(PPO_POP_ITERS * iter_steps), "--eval-every-iters", str(PPO_POP_ITERS),
+            "--eval-steps", str(PPO_POP_EVAL_STEPS), "--select-evals", "1", "--logdir", logdir]
+    print(f"  cut to size: --n-steps {PPO_N_STEPS} (of 2048), {PPO_POP_ITERS} iterations, one eval and "
+          f"one selection eval of {PPO_POP_EVAL_STEPS} steps; every width as the recipe", flush=True)
+    rc.counter.launches = 0
+    t0 = time.perf_counter()
+    learner, ps = run_ppo.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = rc.counter.launches
+    cfg = learner.cfg
+    check((len(ps.seeds), cfg.num_envs, cfg.batch_size, cfg.update_fusion, cfg.pi_hidden, cfg.use_sde)
+          == (POP_SEEDS, 256, 2048, 1, (256, 256), True), f"the robust recipe resolved to {cfg}")
+    n_mb = iter_steps // cfg.batch_size
+    check(ps.opt_steps == PPO_POP_ITERS * cfg.n_epochs * n_mb, f"{ps.opt_steps} optimizer steps")
+    # the reset launches once, each collect step twice, each eval step twice
+    # after its reset's one; the selection evaluates the 4 candidates alone
+    expected = (1 + PPO_POP_ITERS * PPO_N_STEPS * 2 + (1 + 2 * PPO_POP_EVAL_STEPS)
+                + POP_SEEDS * (1 + 2 * PPO_POP_EVAL_STEPS))
+    check(launches == expected, f"PPO population: {launches} kernel launches, expected {expected}")
+    meta = json.load(open(f"{logdir}/policy_best/policy.json"))
+    sel = {s["seed"]: s["select_mean"] for s in meta["population"]["selection"]}
+    check(len(sel) == POP_SEEDS and sel[meta["population"]["winner_seed"]] == max(sel.values()),
+          f"selection {sel}")
+    rates = [json.loads(line)["aggregate_steps_per_second"] for line in open(f"{logdir}/metrics.jsonl")]
+    print(f"  run_ppo --recipe robust on usv-asmc-ca-v0: {POP_SEEDS} seeds x 256 envs, {PPO_POP_ITERS} "
+          f"iterations of {PPO_N_STEPS} steps, {ps.opt_steps} optimizer steps of {cfg.batch_size} rows a "
+          f"member, {seconds:.2f} s; aggregate env-steps/s including updates per iteration "
+          f"{[round(r, 1) for r in rates]} on {card}; kernel launches {launches}; selection {sel}", flush=True)
+    env_cfg = learner.handle.cfg
+    max_err = check_kernel_on_live_state("usv-asmc-ca-v0", env_cfg, ps.batch.env)
+    replay_gap = replay_best("PPO population", "usv-asmc-ca-v0", logdir)
+    check(replay_gap == 0.0, f"the winner's selection eval replayed {replay_gap} away")
+
+    # clipping by each member's own norm, on a minibatch of the live population
+    short = dataclasses.replace(cfg, n_steps=8)
+    probe = type(learner)(learner.handle, short)
+    ps2, traj, last = probe._collect_many(ps)
+    advs, rets = probe._gae(traj, last, short.gamma, short.gae_lambda)
+    draw, batches, _ = probe._minibatches_many(ps2, traj, advs, rets)
+    mb = {k: v[:, 0] for k, v in batches(draw()).items()}
+    grads = torch.autograd.grad(probe._loss_many(ps2, mb).sum(), ps2.model.params)
+    norms = torch.sqrt(sum(g.square().flatten(1).sum(1) for g in grads))
+    small, big = int(norms.argmin()), int(norms.argmax())
+    bound = float(norms[small] + norms[big]) / 2
+    clipped = clip_by_global_norm_many(grads, bound)
+    kept = all(torch.equal(c[small], g[small]) for c, g in zip(clipped, grads))
+    big_norm = float(torch.sqrt(sum(c[big].square().sum() for c in clipped)))
+    check(kept and abs(big_norm - bound) <= 1e-5 * bound,
+          f"per-member clipping: member {small} kept {kept}, member {big} at {big_norm} for {bound}")
+    print(f"  clipping by each member's own norm: norms {[round(float(n), 4) for n in norms]}, bound "
+          f"{bound:.4f}: member {small} unclipped (bit for bit), member {big} scaled to {big_norm:.6g}",
+          flush=True)
+    return {"ppo_population_launches": launches, "ppo_population_seeds": POP_SEEDS,
+            "ppo_population_iterations": PPO_POP_ITERS, "ppo_population_n_steps": PPO_N_STEPS,
+            "ppo_population_iteration_env_steps_per_s": rates, "ppo_population_seconds": seconds,
+            "ppo_population_replay_gap": replay_gap, "ppo_population_kernel_max_abs_err": max_err,
+            "ppo_population_member_norms": norms.tolist(), "ppo_population_clip_bound": bound,
+            "ppo_population_seconds_phase": time.perf_counter() - t_phase}, max_err, ps.batch.env
+
+
+def video_traces(device):
+    """Phase 17: the device half of ``record_rollout_video`` (``rollout_trace``)
+    on the card against the same trace on the CPU, for ``usv-simple`` and
+    the CA env: the same reset and auto-reset draws, a policy of the obs,
+    episodes of 16 steps so that resets run. Positions and rewards at ATOL,
+    done flags equal. (Rendering is held on the CPU by the tests.)"""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.utils.video import rollout_trace
+
+    out = {}
+
+    def policy(obs):
+        return torch.tanh(obs[:, :2] + 0.5)
+
+    for env_id, pose in (("usv-simple", lambda s: s.position), ("usv-asmc-ca-v0", lambda s: s.dyn.pose)):
+        cpu = make(env_id, device="cpu")
+        u = torch.rand((TRACE_STEPS + 1, 1, cpu.n_uniform(cpu.cfg)), generator=torch.Generator().manual_seed(3))
+        sides = {side: rollout_trace(make(env_id, device=dev, max_episode_steps=16), policy, TRACE_STEPS,
+                                     frame_stack=2, uniform=u.to(dev))
+                 for side, dev in (("cpu", "cpu"), ("card", device))}
+        (c0, cs, cd, cr), (k0, ks, kd, kr) = sides["cpu"], sides["card"]
+        check(bool((cd == kd).all()) and int(cd.sum()) >= 2, f"{env_id} trace: done flags differ")
+        err = max(float((pose(k0) - pose(c0)).abs().max()), float((pose(ks) - pose(cs)).abs().max()),
+                  float(np.abs(kr - cr).max()))
+        check(err <= ATOL, f"{env_id} trace: card vs CPU {err}")
+        out[env_id] = err
+        print(f"  {env_id}: rollout_trace of {TRACE_STEPS} steps ({int(cd.sum())} episode ends) on the card "
+              f"against the CPU: poses and rewards within {err:.3g}", flush=True)
+    return {"video_trace_card_vs_cpu": out}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1283,9 +1648,26 @@ def main():
     t0 = time.perf_counter()
     compare_record = update_card_vs_cpu(sac, sac_ts, ppo, ppo_ts, mb)
     compare_record["update_card_vs_cpu"]["seconds"] = time.perf_counter() - t0
-    training_live = (("SAC training, its live state,", "usv-simple", sac.handle.cfg, sac_ts.batch.env),
-                     ("PPO training, its live state,", "usv-asmc-ca-v0", ppo.handle.cfg, ppo_ts.batch.env))
+    training_live = [("SAC training, its live state,", "usv-simple", sac.handle.cfg, sac_ts.batch.env),
+                     ("PPO training, its live state,", "usv-asmc-ca-v0", ppo.handle.cfg, ppo_ts.batch.env)]
+    sac_cfg, ppo_cfg = sac.handle.cfg, ppo.handle.cfg
     del sac, sac_ts, ppo, ppo_ts, mb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("SAC seed population: run_sac --recipe robust on usv-simple")
+        sac_pop_record, live_err, sac_pop_env = sac_population(device, card, rc, tmp)
+        max_err = max(max_err, live_err)
+        phase("population anatomy: S = 1, 2, 4")
+        anatomy_record = population_anatomy(device, card)
+        phase("population member against a single learner, on the card")
+        member_record = member_vs_single(device)
+        phase("PPO seed population: run_ppo --recipe robust on usv-asmc-ca-v0")
+        ppo_pop_record, live_err, ppo_pop_env = ppo_population(device, card, rc, tmp)
+        max_err = max(max_err, live_err)
+    phase("video rollout traces, card against CPU")
+    trace_record = video_traces(device)
+    training_live += [("SAC population, its live state before the cull,", "usv-simple", sac_cfg, sac_pop_env),
+                      ("PPO population, its live state,", "usv-asmc-ca-v0", ppo_cfg, ppo_pop_env)]
 
     phase("kernel time")
 
@@ -1358,10 +1740,12 @@ def main():
         pos, oxy, orr, mask, obd = scene(other, NUM_ENVS, g, device, scatter=False)
         other_rows.append(time_shape(label, (pos, oxy, orr, mask, R, other.sensor_max_range,
                                              other.sensor_span), obd, mask))
-    # the training paths' shapes on the learners' live states
+    # the training paths' shapes on the learners' and the populations' live states
     for label, env_id, live_cfg, live_state in training_live:
         live_args, live_bd = live_scene(env_id, live_cfg, live_state)
         other_rows.append(time_shape(label, live_args, live_bd, live_args[3]))
+    sac_pop_record["sac_population_kernel"] = other_rows[-2]
+    ppo_pop_record["ppo_population_kernel"] = other_rows[-1]
     kernel_ms, plain_ms, bound_ms = main_row["ms"], main_row["plain_ms"], main_row["bound_ms"]
 
     record = {
@@ -1399,6 +1783,11 @@ def main():
         **sac_record,
         **ppo_record,
         **compare_record,
+        **sac_pop_record,
+        **anatomy_record,
+        **member_record,
+        **ppo_pop_record,
+        **trace_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

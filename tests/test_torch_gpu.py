@@ -25,6 +25,9 @@ CUDA. Run them on a machine with one:
   per collect step and none in its updates, PPO collects with two launches
   per CA step and updates with none, and one SAC update's gradients on the
   card agree with the CPU's within 1e-4 of the largest entry.
+* Seed populations on the card: a member against the single learner seeded
+  like it (SAC and PPO), and the device half of a video (``rollout_trace``)
+  against the CPU.
 """
 
 import itertools
@@ -551,3 +554,80 @@ def test_sac_update_on_card_matches_cpu(cuda):
     lr = card.cfg.learning_rate
     for a, b in zip(cts.actor.parameters(), pts.actor.parameters()):
         assert float((a.detach().cpu() - b.detach()).abs().max()) <= 2 * lr + 1e-6
+
+
+@pytest.mark.parametrize("kind", ["sac", "ppo"])
+def test_population_member_matches_single_learner_on_card(cuda, kind):
+    """Member 1 of a 2-seed population against the single learner seeded
+    like it, on the card: SAC's first collect (all warm-up) bit for bit,
+    PPO's (the actor acting through cuBLAS's batched GEMMs on one side and
+    its single GEMMs on the other) within 2e-4; the first update's gradients
+    within 2e-6 of the largest entry and the parameters after it within
+    ``2 * lr``; one kernel launch per population collect step of
+    ``usv-simple``, two of the CA env."""
+    if kind == "sac":
+        from usv_tpu_torch.train.buffer import buffer_sample, buffer_sample_many
+        from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+        learner = SacLearner(make("usv-simple"), SacConfig(**{**SAC_SMALL, "learning_starts": 32}))
+        ps, ts = learner.init_many([4, 5]), learner.init(5)
+        before = counter.launches
+        learner._env_cycle_many(ps)
+        assert counter.launches == before + learner.cfg.train_freq
+        learner._env_cycle(ts)
+        assert torch.equal(ps.buffer.obs[1], ts.buffer.obs) and torch.equal(ps.buffer.reward[1], ts.buffer.reward)
+        draws, d = learner._update_draws_many(ps, 64), learner._update_draws(ts, 64, ts.generator)
+        loss = learner._critic_loss_many(ps, buffer_sample_many(ps.buffer, draws["idx"]), draws["noise_next"])
+        got = [g[1] for g in torch.autograd.grad(loss.sum(), ps.critic.params)]
+        want = torch.autograd.grad(learner._critic_loss(ts, buffer_sample(ts.buffer, 64, idx=d["idx"]),
+                                                        d["noise_next"]), list(ts.critic.parameters()))
+        learner._update_once_many(ps, 64, draws=draws)
+        learner._update_once(ts, 64, draws=d)
+        pairs = [(p, q) for n in ("actor", "critic") for p, q in zip(getattr(ps, n).params,
+                                                                     getattr(ts, n).parameters())]
+        lr = learner.lr_at(0)
+    else:
+        from usv_tpu_torch.train.ppo import PpoConfig, PpoLearner
+
+        learner = PpoLearner(make("usv-asmc-ca-v0"), PpoConfig(
+            n_steps=8, batch_size=32, n_epochs=2, num_envs=8, pi_hidden=(32, 32), vf_hidden=(32, 32),
+            frame_stack=2))
+        ps, ts = learner.init_many([4, 5]), learner.init(5)
+        before = counter.launches
+        ps, traj, last = learner._collect_many(ps)
+        assert counter.launches == before + 2 * 8
+        ts, straj, slast = learner._collect(ts)
+        assert float((traj["obs"][:, 8:] - straj["obs"]).abs().max()) <= 2e-4
+        # the single learner takes member 1's own minibatch
+        advs, rets = learner._gae(traj, last, 0.99, 0.95)
+        draw, batches, _ = learner._minibatches_many(ps, traj, advs, rets)
+        mb = {k: v[:, 0] for k, v in batches(draw()).items()}
+        got = [g[1] for g in torch.autograd.grad(learner._loss_many(ps, mb).sum(), ps.model.params)]
+        own = {k: v[1] for k, v in mb.items()}
+        want = torch.autograd.grad(learner._loss(ts.model, own, 0.2, 0.0, 0.5), list(ts.model.parameters()))
+        learner._minibatch_step_many(ps, mb)
+        learner._minibatch_step(ts, own)
+        pairs = list(zip(ps.model.params, ts.model.parameters()))
+        lr = learner.lr_at(0)
+    scale = max(float(w.abs().max()) for w in want)
+    assert max(float((g - w).abs().max()) for g, w in zip(got, want)) <= 2e-6 * scale
+    assert max(float((p[1] - q).detach().abs().max()) for p, q in pairs) <= 2 * lr
+
+
+@pytest.mark.parametrize("env_id", ["usv-simple", "usv-asmc-ca-v0"])
+def test_video_trace_on_card_matches_cpu(cuda, env_id):
+    """``rollout_trace`` (the device half of ``record_rollout_video``) on the
+    card against the CPU, fed the same draws: poses and rewards within 1e-4,
+    the same done flags."""
+    from usv_tpu_torch.utils.video import rollout_trace
+
+    cpu = make(env_id, device="cpu", max_episode_steps=8)
+    u = torch.rand((25, 1, cpu.n_uniform(cpu.cfg)), generator=torch.Generator().manual_seed(2))
+    policy = lambda obs: torch.tanh(obs[:, :2] + 0.5)  # noqa: E731
+    c0, cs, cd, cr = rollout_trace(cpu, policy, 24, frame_stack=2, uniform=u)
+    k0, ks, kd, kr = rollout_trace(make(env_id, max_episode_steps=8), policy, 24, frame_stack=2,
+                                   uniform=u.to(cuda))
+    pose = (lambda s: s.position) if env_id == "usv-simple" else (lambda s: s.dyn.pose)
+    assert (cd == kd).all() and cd.sum() == 3
+    assert float((pose(ks) - pose(cs)).abs().max()) <= 1e-4 and float(np.abs(kr - cr).max()) <= 1e-4
+    assert pose(k0).device.type == "cpu"  # the trace comes back to the host

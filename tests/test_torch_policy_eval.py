@@ -15,8 +15,8 @@ against the JAX package, on the CPU.
 * The whole slice as one test: a converted gSDE SAC actor drives
   ``BatchedEnv("usv-curved-aitsmc", frame_stack=5)`` against the JAX
   ``batch_policy_metrics`` body.
-* The CLI writes its summary and figure on the CPU and refuses the flag
-  whose code is not ported (``--video``).
+* The CLI writes its summary and figure on the CPU, and with ``--video`` an
+  episode video of the bundle's policy.
 """
 
 import dataclasses
@@ -347,14 +347,16 @@ def test_run_eval_cli_on_the_cpu(tmp_path, capsys):
     zero = json.loads((tmp_path / "zero" / "summary.json").read_text())
     assert zero["policy"] == "zero-action baseline" and zero["episodes_finished"] == 0
 
-    # a flag whose code is not ported: a parser error that says so, no silent
-    # no-op; --replay-recorded-eval needs a bundle, and one that records a seed
-    for argv, word in ((["--video", "--policy", npz], "utils/video.py"),
-                       (["--replay-recorded-eval"], "--policy")):
-        with pytest.raises(SystemExit) as exc:
-            run_eval.main(["--device", "cpu"] + argv)
-        assert exc.value.code == 2
-        assert word in capsys.readouterr().err
+    # --video renders the bundle's episode on the host
+    run_eval.main(["--env", "usv-curved-aitsmc", "--policy", npz, "--out", str(tmp_path / "video"),
+                   "--steps", "6", "--episodes", "2", "--device", "cpu", "--video"])
+    assert [p.stem for p in (tmp_path / "video").glob("episode.*")] == ["episode"]
+
+    # --replay-recorded-eval needs a bundle, and one that records a seed
+    with pytest.raises(SystemExit) as exc:
+        run_eval.main(["--device", "cpu", "--replay-recorded-eval"])
+    assert exc.value.code == 2
+    assert "--policy" in capsys.readouterr().err
     with pytest.raises(ValueError, match="no recorded in-run eval"):
         run_eval.main(["--device", "cpu", "--replay-recorded-eval", "--policy", str(tmp_path),
                        "--out", str(tmp_path / "replay")])

@@ -7,6 +7,11 @@ transition crosses to the host. ``ptr`` and ``size`` are host integers: every
 insert has a row count the host knows, so the learner's warm-up gate on the
 fill reads no device value.
 
+A seed population's buffer (:func:`buffer_init_many`) is the same five
+tensors with a leading member axis ``(S, cap, ...)``: every member writes its
+own rows at the one shared write head, and :func:`buffer_sample_many` gathers
+each member's own indices in one indexed read per field.
+
 The shard-local variants of the JAX module (``buffer_add_traj_local``,
 ``buffer_sample_local``, ``buffer_reshard_local``) belong to the data-parallel
 layer and wait for it.
@@ -22,7 +27,7 @@ import torch
 
 @dataclasses.dataclass
 class ReplayBuffer:
-    obs: torch.Tensor        # (cap, obs_dim)
+    obs: torch.Tensor        # (cap, obs_dim), or (S, cap, obs_dim) for a population
     action: torch.Tensor     # (cap, act_dim)
     reward: torch.Tensor     # (cap,)
     next_obs: torch.Tensor   # (cap, obs_dim)
@@ -34,7 +39,7 @@ class ReplayBuffer:
 
     @property
     def capacity(self) -> int:
-        return self.obs.shape[0]
+        return self.obs.shape[-2]
 
     def nbytes(self) -> int:
         return sum(getattr(self, f).nbytes for f in self.FIELDS)
@@ -94,3 +99,38 @@ def buffer_sample(buf: ReplayBuffer, batch_size: int,
         idx = torch.randint(0, max(buf.size, 1), (batch_size,), generator=generator,
                             device=buf.obs.device)
     return {name: getattr(buf, name).index_select(0, idx) for name in ReplayBuffer.FIELDS}
+
+
+def buffer_init_many(members: int, capacity: int, obs_dim: int, act_dim: int,
+                     dtype=torch.float32, device="cpu") -> ReplayBuffer:
+    """One buffer of ``capacity`` rows for each of ``members`` learners, as
+    tensors with a leading member axis."""
+    def zeros(*shape):
+        return torch.zeros((members, *shape), dtype=dtype, device=device)
+
+    return ReplayBuffer(obs=zeros(capacity, obs_dim), action=zeros(capacity, act_dim),
+                        reward=zeros(capacity), next_obs=zeros(capacity, obs_dim),
+                        done=zeros(capacity))
+
+
+def buffer_add_many(buf: ReplayBuffer, obs, action, reward, next_obs, done) -> ReplayBuffer:
+    """Every member's ``b`` new rows (tensors ``(S, b, ...)``) at the shared
+    write head, in place: the aligned slice path of :func:`buffer_add_batch`
+    (the population learner keeps ``capacity % b == 0``). Returns ``buf``."""
+    cap = buf.capacity
+    b = obs.shape[1]
+    if cap % b:
+        raise ValueError(f"aligned insert needs capacity ({cap}) % rows ({b}) == 0")
+    for name, value in dict(obs=obs, action=action, reward=reward, next_obs=next_obs,
+                            done=done).items():
+        getattr(buf, name)[:, buf.ptr:buf.ptr + b].copy_(value)
+    buf.ptr = (buf.ptr + b) % cap
+    buf.size = min(buf.size + b, cap)
+    return buf
+
+
+def buffer_sample_many(buf: ReplayBuffer, idx: torch.Tensor) -> dict:
+    """Member ``i``'s rows ``idx[i]`` (``idx`` is ``(S, batch)``), gathered
+    for all members at once: a dict of ``(S, batch, ...)`` tensors."""
+    members = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return {name: getattr(buf, name)[members, idx] for name in ReplayBuffer.FIELDS}

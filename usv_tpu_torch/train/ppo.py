@@ -16,12 +16,21 @@ the draws themselves; the default draws come from the run's one
 terminal frames at every step and masks it with JAX's own arithmetic
 (``reward + gamma * V * truncated_only``), where JAX skips the forward with a
 ``lax.cond`` when no env truncated: the host never reads the mask back.
+
+A seed population (``init_many``, ``train_iteration_many``,
+``eval_policy_stats_many``: the ``--recipe robust`` path) runs S learners as
+one program, as ``SacLearner``'s does: the S x num_envs envs are the rows of
+one ``BatchedEnv``, the actor-critic a ``Stacked`` set of S members called
+through one ``vmap``, one Adam over the stacked parameters, one backward
+pass on the sum of the members' losses, and the gradient clipped by each
+member's own global norm. Member ``i`` draws from its own generator what the
+single-seed learner with its seed draws, so member ``i`` is that learner.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,16 +38,22 @@ from usv_tpu_torch.envs.registry import EnvHandle
 from usv_tpu_torch.envs.types import tree_map
 from usv_tpu_torch.models.mlp import PpoActorCritic
 from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
+from usv_tpu_torch.models.stacked import Stacked, vmap_members
 from usv_tpu_torch.train.common import (
     adam,
     clip_by_global_norm,
+    clip_by_global_norm_many,
     derived_seed,
     eval_stats,
+    eval_stats_many,
     global_norm,
     linear_schedule,
     new_generator,
+    per_member,
     seeded_init,
     step_with,
+    take_adam,
+    take_rows,
 )
 from usv_tpu_torch.vector.batch import BatchedEnv, BatchState
 
@@ -142,6 +157,22 @@ class PpoTrainState:
     sde: Optional[SdeState] = None  # when cfg.use_sde
 
 
+@dataclasses.dataclass
+class PpoPopulationState:
+    """S independent learners as one state: the actor-critic a
+    :class:`Stacked` of S members, the env rows member-major (member ``i``'s
+    envs are rows ``[i*B, (i+1)*B)``), one generator per member; the counters
+    are shared."""
+    model: Stacked
+    opt: torch.optim.Adam
+    batch: BatchState                # S * num_envs rows
+    generators: List[torch.Generator]
+    seeds: List[int]
+    update_count: int = 0
+    opt_steps: int = 0
+    sde: Optional[SdeState] = None   # (S * num_envs, ...) when cfg.use_sde
+
+
 class PpoLearner:
     def __init__(self, handle: EnvHandle, config: PpoConfig = PpoConfig()):
         self.handle = handle
@@ -161,6 +192,7 @@ class PpoLearner:
                                sanitize=config.sanitize_envs)
         self._low = torch.tensor(env_cfg.action_low, dtype=torch.float32, device=self.device)
         self._high = torch.tensor(env_cfg.action_high, dtype=torch.float32, device=self.device)
+        self._benv_many = {}  # population BatchedEnvs by member count
 
     def build_model(self) -> PpoActorCritic:
         """A fresh actor-critic of this learner's architecture and compute dtype."""
@@ -389,3 +421,218 @@ class PpoLearner:
             values = torch.stack([global_norm(list(ts.model.parameters())),
                                   ts.model.log_std.mean()]).tolist()
         return dict(param_norm=values[0], log_std_mean=values[1])
+
+    # ------------------------------------------------------- seed population
+
+    def population_env(self, members: int) -> BatchedEnv:
+        """The ``BatchedEnv`` of a population of ``members``: their
+        ``members * num_envs`` envs as one batch."""
+        if members not in self._benv_many:
+            self._benv_many[members] = BatchedEnv(
+                self.handle, members * self.cfg.num_envs, frame_stack=max(1, self.cfg.frame_stack),
+                sanitize=self.cfg.sanitize_envs)
+        return self._benv_many[members]
+
+    def init_many(self, seeds: Sequence[int]) -> PpoPopulationState:
+        """A population of independent learners, one per seed: member ``i``
+        starts as :meth:`init` ``(seeds[i])`` starts."""
+        cfg, dev, B = self.cfg, self.device, self.cfg.num_envs
+        seeds = [int(s) for s in seeds]
+        models, generators, uniforms, mats = [], [], [], []
+        width = self.handle.n_uniform(self.handle.cfg)
+        for seed in seeds:
+            with seeded_init(seed):
+                models.append(self.build_model().to(dev))
+            g = new_generator(seed, dev)
+            generators.append(g)
+            uniforms.append(torch.rand((B, width), generator=g, dtype=torch.float32, device=dev))
+            if cfg.use_sde:
+                mats.append(init_sde(g, cfg.pi_hidden[-1], self.act_dim, (B,), dev).exploration_mat)
+        model = Stacked.from_modules(models)
+        batch, _ = self.population_env(len(seeds)).reset(uniform=torch.cat(uniforms))
+        sde = None
+        if cfg.use_sde:
+            mat = torch.cat(mats)
+            sde = SdeState(exploration_mat=mat, step=torch.zeros(mat.shape[0], dtype=torch.int32,
+                                                                 device=dev))
+        return PpoPopulationState(model=model, opt=adam(model.params, self.lr_at(0)), batch=batch,
+                                  generators=generators, seeds=seeds, sde=sde)
+
+    def _value_many(self, ps: PpoPopulationState, obs):
+        S = len(ps.seeds)
+        return vmap_members(lambda model, o: model.value_only(o), [ps.model],
+                            obs.view(S, -1, obs.shape[-1])).reshape(-1)
+
+    @torch.no_grad()
+    def _collect_many(self, ps: PpoPopulationState):
+        """:meth:`_collect` for every member at once -> ``(ps, traj,
+        last_value)`` with ``(n_steps, S * num_envs, ...)`` columns; each
+        member's draws from its own generator in the single learner's order."""
+        cfg, dev, B = self.cfg, self.device, self.cfg.num_envs
+        S = len(ps.seeds)
+        benv = self.population_env(S)
+        width = self.handle.n_uniform(self.handle.cfg)
+        cols = {k: [] for k in ("obs", "action", "logp", "value", "reward", "raw_reward", "done")}
+        for _ in range(cfg.n_steps):
+            frames = ps.batch.frames
+            obs = frames.reshape(S * B, -1)
+            if cfg.use_sde:
+                normals = per_member(ps.generators, lambda g: torch.randn(
+                    (B, *ps.sde.exploration_mat.shape[1:]), generator=g, device=dev))
+                ps.sde = maybe_resample(ps.sde, None, cfg.sde_sample_freq, normals=normals)
+                mat = ps.sde.exploration_mat
+                out = vmap_members(
+                    lambda model, o, m, k: model.sample_sde(o, SdeState(exploration_mat=m, step=k)),
+                    [ps.model], obs.view(S, B, -1), mat.view(S, B, *mat.shape[1:]),
+                    ps.sde.step.view(S, B))
+            else:
+                noise = per_member(ps.generators, lambda g: torch.randn((B, self.act_dim),
+                                                                        generator=g, device=dev))
+                out = vmap_members(lambda model, o, n: model.sample(o, noise=n), [ps.model],
+                                   obs.view(S, B, -1), noise.view(S, B, -1))
+            action, logp, value = (x.reshape(S * B, *x.shape[2:]) for x in out)
+            clipped = torch.clamp(action, self._low, self._high)
+            reset = per_member(ps.generators, lambda g: torch.rand(
+                (B, width), generator=g, dtype=torch.float32, device=dev))
+            ps.batch, step = benv.step(ps.batch, clipped, uniform=reset)
+            truncated_only = (step.truncated & ~step.terminated).to(torch.float32)
+            terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
+            terminal_value = self._value_many(ps, terminal.reshape(S * B, -1))
+            reward = step.reward + cfg.gamma * terminal_value * truncated_only
+            for k, v in (("obs", obs), ("action", action), ("logp", logp), ("value", value),
+                         ("reward", reward), ("raw_reward", step.reward),
+                         ("done", step.done.to(torch.float32))):
+                cols[k].append(v)
+        last_value = self._value_many(ps, ps.batch.frames.reshape(S * B, -1))
+        return ps, {k: torch.stack(v) for k, v in cols.items()}, last_value
+
+    def _minibatches_many(self, ps: PpoPopulationState, traj, advs, returns):
+        """:meth:`_minibatches` per member -> ``(draw, batches, n_batches)``:
+        ``draw()`` makes every member's permutations from its own generator,
+        ``batches(perms)`` lays each member's rollout out under its own
+        permutation as ``(S, n_batches, eff_batch, ...)`` tensors."""
+        cfg = self.cfg
+        S, B, T = len(ps.seeds), cfg.num_envs, cfg.n_steps
+        n_total = T * B
+        obs_dtype = torch.bfloat16 if cfg.rollout_obs_bf16 else torch.float32
+        eff_batch = cfg.batch_size * max(1, cfg.update_fusion)
+        n_batches = n_total // eff_batch
+
+        def per_member_rollout(x):  # (T, S*B, ...) -> (S, T, B, ...)
+            return x.reshape(T, S, B, *x.shape[2:]).transpose(0, 1)
+
+        rollout = dict(obs=traj["obs"].to(obs_dtype), action=traj["action"], logp=traj["logp"],
+                       adv=advs, ret=returns)
+        rollout = {k: per_member_rollout(v) for k, v in rollout.items()}
+        if cfg.shuffle_groups > 1:
+            def draw():
+                return torch.stack([group_permutations(g, cfg.shuffle_groups,
+                                                       n_total // cfg.shuffle_groups, self.device)
+                                    for g in ps.generators])
+
+            def batches(perms):
+                return torch.func.vmap(lambda tree, perm: apply_grouped_minibatches(
+                    tree, cfg.shuffle_groups, eff_batch, perm))(rollout, perms)
+        else:
+            flat = {k: v.reshape(S, n_total, *v.shape[3:]) for k, v in rollout.items()}
+            members = torch.arange(S, device=self.device)[:, None]
+
+            def draw():
+                return torch.stack([torch.randperm(n_total, generator=g, device=self.device)
+                                    for g in ps.generators])
+
+            def batches(perms):
+                keep = perms[:, : n_batches * eff_batch]
+                return {k: v[members, keep].reshape(S, n_batches, eff_batch, *v.shape[2:])
+                        for k, v in flat.items()}
+        return draw, batches, n_batches
+
+    def _loss_many(self, ps: PpoPopulationState, batch):
+        """Every member's :meth:`_loss` on its own minibatch (``(S, eff_batch,
+        ...)`` tensors) through one ``vmap``: ``(S,)``."""
+        cfg = self.cfg
+        return vmap_members(lambda model, b: self._loss(model, b, cfg.clip_range, cfg.ent_coef,
+                                                        cfg.vf_coef), [ps.model], batch)
+
+    def _minibatch_step_many(self, ps: PpoPopulationState, batch) -> None:
+        """:meth:`_minibatch_step` for every member: one backward pass on the
+        sum of the members' losses, each member's gradient clipped by its own
+        global norm, one Adam step."""
+        cfg = self.cfg
+        grads = clip_by_global_norm_many(
+            torch.autograd.grad(self._loss_many(ps, batch).sum(), ps.model.params), cfg.max_grad_norm)
+        step_with(ps.opt, ps.model.params, grads, self.lr_at(ps.opt_steps))
+        ps.opt_steps += 1
+
+    def _update_many(self, ps: PpoPopulationState, traj, last_value):
+        """:meth:`_update` for every member: GAE, the epochs of minibatch
+        steps under each member's own shuffles, the group rotation."""
+        cfg = self.cfg
+        advs, returns = self._gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
+        draw, batches, n_batches = self._minibatches_many(ps, traj, advs, returns)
+        layout = None if cfg.reshuffle_epochs else batches(draw())
+        for _ in range(cfg.n_epochs):
+            epoch = batches(draw()) if cfg.reshuffle_epochs else layout
+            for i in range(n_batches):
+                self._minibatch_step_many(ps, {k: v[:, i] for k, v in epoch.items()})
+        ps.update_count += 1
+        if cfg.shuffle_groups > 1 and cfg.shuffle_group_rotate:
+            B = cfg.num_envs
+            perm = per_member(ps.generators, lambda g: torch.randperm(B, generator=g,
+                                                                      device=self.device))
+            rows = perm + torch.arange(len(ps.seeds), device=self.device).repeat_interleave(B) * B
+            ps.batch = tree_map(lambda x: x.index_select(0, rows), ps.batch)
+            ps.sde = tree_map(lambda x: x.index_select(0, rows), ps.sde)
+        return ps
+
+    def train_iteration_many(self, ps: PpoPopulationState):
+        """:meth:`train_iteration` for the population. Returns ``(ps, (S,)
+        mean env rewards)``."""
+        ps, traj, last_value = self._collect_many(ps)
+        ps = self._update_many(ps, traj, last_value)
+        S = len(ps.seeds)
+        return ps, traj["raw_reward"].view(self.cfg.n_steps, S, -1).mean((0, 2))
+
+    def take_members(self, ps: PpoPopulationState, keep: Sequence[int]) -> PpoPopulationState:
+        """The population of the members ``keep`` (the racing cull): their
+        parameters, Adam moments, env rows, frames, gSDE state and
+        generators, as they were."""
+        idx = torch.as_tensor(list(keep), dtype=torch.long, device=self.device)
+        model = ps.model.take(idx)
+        B = self.cfg.num_envs
+        return PpoPopulationState(
+            model=model, opt=take_adam(ps.opt, ps.model.params, model.params, idx),
+            batch=take_rows(ps.batch, idx, B), generators=[ps.generators[i] for i in keep],
+            seeds=[ps.seeds[i] for i in keep], update_count=ps.update_count,
+            opt_steps=ps.opt_steps, sde=take_rows(ps.sde, idx, B))
+
+    def module_from(self, params: dict) -> PpoActorCritic:
+        """An ordinary actor-critic on the learner's device holding
+        ``params`` (a member's :meth:`Stacked.member`)."""
+        model = self.build_model()
+        model.load_state_dict(params)
+        return model.to(self.device)
+
+    def eval_seeds(self, ps: PpoPopulationState) -> List[int]:
+        """Each member's :meth:`eval_seed` at this point of the run."""
+        return [derived_seed(seed, ps.update_count, ps.opt_steps, EVAL_TAG) for seed in ps.seeds]
+
+    def eval_policy_many(self, ps: PpoPopulationState, n_steps: int = 500, num_envs: int = 16):
+        """Per-member deterministic eval -> ``(S,)`` mean reward per step."""
+        return self.eval_policy_stats_many(ps, n_steps, num_envs)["reward_per_step"]
+
+    def eval_policy_stats_many(self, ps: PpoPopulationState, n_steps: int = 500,
+                               num_envs: int = 16) -> dict:
+        """:meth:`eval_policy_stats` of every member in one batch of
+        ``S * num_envs`` envs, member ``i``'s from its own eval seed: a dict
+        of ``(S,)`` float arrays."""
+        S = len(ps.seeds)
+        benv = BatchedEnv(self.handle, S * num_envs, frame_stack=max(1, self.cfg.frame_stack),
+                          sanitize=self.cfg.sanitize_envs)
+        low, high = self._low, self._high
+
+        def act(obs):
+            return vmap_members(lambda model, o: torch.clamp(model.pi_mean(model.pi_trunk(o)), low, high),
+                                [ps.model], obs.view(S, num_envs, -1)).reshape(S * num_envs, -1)
+
+        return eval_stats_many(benv, self.eval_seeds(ps), act, n_steps)

@@ -8,7 +8,9 @@ Runs on the CUDA device unless ``--device`` names another. Writes the 8-panel
 diagnostics figure and a JSON metrics summary. ``--policy`` is a bundle
 directory (``usv_tpu_torch.train.policy.save_policy``) or a ``policy_np.npz``
 exported by this package or by the JAX package; with no ``--policy`` it
-evaluates the zero-action baseline.
+evaluates the zero-action baseline. ``--video`` also renders one episode to
+``<out>/episode.mp4`` (or ``.gif``): the rollout on the device, the frames on
+the host (pygame, and cv2 or imageio).
 """
 
 from __future__ import annotations
@@ -42,8 +44,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.replay_recorded_eval and not args.policy:
         p.error("--replay-recorded-eval requires --policy")
-    if args.video:
-        p.error("--video needs utils/video.py, which is not ported yet")
 
     import torch
 
@@ -107,6 +107,15 @@ def main(argv=None):
     )
     (out / "summary.json").write_text(json.dumps(summary, indent=1))
     print(json.dumps(summary), flush=True)
+
+    if args.video:
+        # one device rollout, host-side rendering from its trace
+        from usv_tpu_torch.utils.video import record_rollout_video
+
+        record_rollout_video(
+            handle, batch_policy_fn, str(out / "episode"),
+            n_steps=args.steps, seed=args.seed, frame_stack=frame_stack,
+        )
     print(f"wrote {fig_path} and {out / 'summary.json'}", flush=True)
 
 

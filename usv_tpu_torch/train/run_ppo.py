@@ -4,10 +4,14 @@
 Usage:
     python -m usv_tpu_torch.train.run_ppo --env usv-simple --total-steps 1000000 [--device cpu]
 
+    python -m usv_tpu_torch.train.run_ppo --recipe robust --env usv-asmc-ca-v0 \
+        --total-steps 1000000 --cull-at-frac 0.5 --logdir runs/ppo_robust
+
 Runs on the CUDA card unless ``--device`` names another device.
-``--population`` > 1, ``--recipe robust`` (``train/population.py``) and
-``--video-every-iters`` (``utils/video.py``) are parser errors that name what
-they wait for.
+``--recipe robust`` or ``--population`` > 1 trains a seed population as one
+batched program and exports the selected winner (``train/population.py``);
+``--video-every-iters`` records an episode video of the current policy
+(rendering needs pygame, and cv2 or imageio, on the host).
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def build_parser():
                    help="named preset; 'at-scale' = 256 envs, batch 2048, 4-way update "
                         "fusion (1-way on usv-asmc-ca-v0), single shuffle, lr annealed over "
                         "the run (explicit flags override); 'robust' = the at-scale recipe "
-                        "as a seed population (waits for train/population.py)")
+                        "trained as a seed population in one batched program, winner "
+                        "auto-selected by the shared eval protocol and exported")
     p.add_argument("--total-steps", type=float, default=10e6)
     p.add_argument("--num-envs", type=int, default=None)  # default 16
     p.add_argument("--n-steps", type=int, default=2048)
@@ -104,8 +109,7 @@ def build_parser():
                    help="with --shuffle-groups: randomly permute the per-env state between "
                         "iterations so group membership rotates")
     p.add_argument("--video-every-iters", type=int, default=0,
-                   help="record a policy episode video every N iterations (waits for "
-                        "utils/video.py)")
+                   help="record a policy episode video every N iterations")
     p.add_argument("--watch-every-iters", type=int, default=20,
                    help="log parameter-norm diagnostics every N iterations "
                         "(the reference's wandb.watch analog); 0 disables")
@@ -122,41 +126,25 @@ def build_parser():
                    help="deterministic-eval rollout length")
     p.add_argument("--eval-envs", type=int, default=16, help="deterministic-eval batch width")
     p.add_argument("--population", type=int, default=None,
-                   help="train N seeds as one population (waits for train/population.py)")
+                   help="train N seeds as one batched population and export the winner "
+                        "(default 1; --recipe robust defaults 4)")
     p.add_argument("--cull-at-frac", type=float, default=0.0,
-                   help="population racing cull (waits for train/population.py)")
+                   help="racing: at this fraction of the budget, keep only the --cull-keep "
+                        "best-so-far seeds (0 disables)")
     p.add_argument("--cull-keep", type=int, default=None,
-                   help="seeds surviving the cull (waits for train/population.py)")
+                   help="seeds surviving the cull (default population//2, min 2)")
     p.add_argument("--select-evals", type=int, default=3,
-                   help="re-evals per candidate in population runs (waits for "
-                        "train/population.py)")
+                   help="fresh-seed re-evals per candidate in the final winner selection "
+                        "(population runs)")
     p.add_argument("--device", default=None, help="torch device; default the CUDA device")
     return p
 
 
-def main(argv=None):
-    """Train; returns ``(learner, train_state)`` of the finished run."""
-    from usv_tpu_torch.train.common import refuse_unported
+def ppo_config(args):
+    """The ``PpoConfig`` a resolved argument namespace asks for."""
+    from usv_tpu_torch.train.ppo import PpoConfig
 
-    p = build_parser()
-    args = apply_recipe(p.parse_args(argv), p)
-    if args.rotate_groups and args.shuffle_groups <= 1:
-        # fail fast: the rotation is gated on the grouped shuffle and would
-        # otherwise be a silent no-op
-        p.error("--rotate-groups requires --shuffle-groups > 1 (rotation permutes group "
-                "MEMBERSHIP of the grouped shuffle; with the global shuffle there is "
-                "nothing to rotate)")
-    refuse_unported(p, args, "--video-every-iters", args.video_every_iters)
-
-    from usv_tpu_torch.envs import make
-    from usv_tpu_torch.train.checkpoint import save_checkpoint
-    from usv_tpu_torch.train.metrics import MetricLogger, score_eval_stats
-    from usv_tpu_torch.train.policy import export_policy, in_run_eval_meta
-    from usv_tpu_torch.train.ppo import PpoConfig, PpoLearner
-
-    env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
-    handle = make(args.env, device=args.device, **env_kwargs)
-    cfg = PpoConfig(
+    return PpoConfig(
         n_steps=args.n_steps,
         batch_size=args.batch_size,
         learning_rate=args.lr,
@@ -170,6 +158,69 @@ def main(argv=None):
         shuffle_groups=args.shuffle_groups,
         shuffle_group_rotate=args.rotate_groups,
     )
+
+
+def run_population(args):
+    """The ``--recipe robust`` path: S independent at-scale learners as one
+    batched program, per-seed best-eval snapshots, optional racing cull, and
+    winner selection by the shared eval protocol (the reference's
+    counterpart is N separate SB3 runs plus a human picking the best,
+    sb3_train_vec.py:58-81). Returns ``(learner, population state)``."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.population import run_population_loop
+    from usv_tpu_torch.train.ppo import PpoLearner
+
+    env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
+    handle = make(args.env, device=args.device, **env_kwargs)
+    learner = PpoLearner(handle, ppo_config(args))
+    cfg = learner.cfg
+    seeds = list(range(args.seed, args.seed + args.population))
+    ts = learner.init_many(seeds)
+
+    steps_per_iter = cfg.n_steps * cfg.num_envs  # per seed
+    total_iters = max(1, -(-int(args.total_steps) // steps_per_iter))
+
+    def train_many(ts):
+        ts, rewards = learner.train_iteration_many(ts)
+        return ts, dict(mean_reward=float(rewards.mean()))
+
+    ts = run_population_loop(
+        learner, seeds, ts, args,
+        train_many=train_many,
+        total_units=total_iters,
+        steps_per_unit=steps_per_iter,
+        eval_every=args.eval_every_iters,
+        params_of=lambda ts: ts.model,
+    )
+    return learner, ts
+
+
+def main(argv=None):
+    """Train; returns ``(learner, train_state)`` of the finished run (a
+    population state for ``--population`` > 1)."""
+    p = build_parser()
+    args = apply_recipe(p.parse_args(argv), p)
+    if args.rotate_groups and args.shuffle_groups <= 1:
+        # fail fast: the rotation is gated on the grouped shuffle and would
+        # otherwise be a silent no-op
+        p.error("--rotate-groups requires --shuffle-groups > 1 (rotation permutes group "
+                "MEMBERSHIP of the grouped shuffle; with the global shuffle there is "
+                "nothing to rotate)")
+    # population.py warns about flags it must ignore only when they differ
+    # from these parser defaults (i.e. the user actually set them)
+    args._parser_defaults = {f: p.get_default(f) for f in vars(args)}
+    if args.population > 1:
+        return run_population(args)
+
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.checkpoint import save_checkpoint
+    from usv_tpu_torch.train.metrics import MetricLogger, score_eval_stats
+    from usv_tpu_torch.train.policy import export_policy, in_run_eval_meta
+    from usv_tpu_torch.train.ppo import PpoLearner
+
+    env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
+    handle = make(args.env, device=args.device, **env_kwargs)
+    cfg = ppo_config(args)
     learner = PpoLearner(handle, cfg)
     ts = learner.init(seed=args.seed)
     logger = MetricLogger(args.logdir, config=vars(args))
@@ -196,6 +247,21 @@ def main(argv=None):
                 export_policy(learner, ts, f"{args.logdir}/policy_best", extra_meta=in_run_eval_meta(
                     args.env, args.best_metric, score, stats, learner.eval_seed(ts),
                     args.eval_steps, args.eval_envs))
+        if args.video_every_iters and it % args.video_every_iters == 0:
+            import torch
+
+            from usv_tpu_torch.utils.video import record_rollout_video
+
+            model = ts.model
+
+            def vid_policy(obs):
+                return torch.clamp(model.pi_mean(model.pi_trunk(obs)), learner._low, learner._high)
+
+            _, vid_reward = record_rollout_video(
+                handle, vid_policy, f"{args.logdir}/videos/step_{it * steps_per_iter}",
+                n_steps=500, seed=it, frame_stack=cfg.frame_stack,
+            )
+            metrics["video_episode_reward"] = vid_reward
         logger.log(it * steps_per_iter, **metrics)
         print({k: round(v, 3) if isinstance(v, float) else v for k, v in metrics.items()}, flush=True)
         if args.checkpoint_every_iters and it % args.checkpoint_every_iters == 0:

@@ -4,13 +4,18 @@ Usage:
     python -m usv_tpu_torch.train.run_sac --env usv-simple --total-steps 1000000 \\
         --num-envs 256 --logdir runs/sac [--device cpu]
 
+    python -m usv_tpu_torch.train.run_sac --recipe robust --env usv-simple \
+        --total-steps 1000000 --cull-at-frac 0.5 --logdir runs/sac_robust
+
 Env batch, replay and learner live on the device (the CUDA card unless
 ``--device`` names another); the host loop runs blocks of rounds and logs
-metrics, evals, the best policy and checkpoints. Flags whose code is not
-ported are parser errors that name what they wait for: ``--population`` > 1
-and ``--recipe robust`` (``train/population.py``), ``--shard`` and
-``--shard-local-replay`` (the data-parallel layer) and ``--video-every-blocks``
-(``utils/video.py``).
+metrics, evals, the best policy, checkpoints and, with
+``--video-every-blocks``, an episode video of the current policy (rendering
+needs pygame, and cv2 or imageio, on the host). ``--recipe robust`` or
+``--population`` > 1 trains a seed population as one batched program and
+exports the selected winner (``train/population.py``). ``--shard`` and
+``--shard-local-replay`` wait for the data-parallel layer and are parser
+errors that say so.
 """
 
 from __future__ import annotations
@@ -57,13 +62,77 @@ def apply_recipe(args):
     return args
 
 
+def sac_config(args):
+    """The ``SacConfig`` a resolved argument namespace asks for."""
+    from usv_tpu_torch.train.sac import SacConfig
+
+    return SacConfig(
+        buffer_size=args.buffer_size,
+        batch_size=args.batch_size,
+        learning_rate=args.lr,
+        lr_decay_steps=args.lr_decay_steps or None,
+        lr_final_fraction=args.lr_final_frac,
+        learning_starts=args.learning_starts,
+        train_freq=args.train_freq,
+        gradient_steps=args.gradient_steps,
+        use_sde=args.sde,
+        num_envs=args.num_envs,
+        frame_stack=args.frame_stack,
+        lambda_t=args.lambda_t,
+        lambda_s=args.lambda_s,
+        eps_s=args.eps_s,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        fused_updates=args.fused_updates,
+        update_fusion=args.update_fusion,
+    )
+
+
+def run_sac_population(args):
+    """The SAC ``--recipe robust`` path: S independent at-scale learners
+    (envs, replay buffers, networks) as one batched program, per-seed
+    best-eval snapshots, optional racing cull, and winner selection by the
+    shared eval protocol (``train/population.py``). Per-seed budget =
+    ``--total-steps``. Returns ``(learner, population state)``."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.population import run_population_loop
+    from usv_tpu_torch.train.sac import SacLearner
+
+    env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
+    handle = make(args.env, device=args.device, **env_kwargs)
+    learner = SacLearner(handle, sac_config(args))
+    cfg = learner.cfg
+    seeds = list(range(args.seed, args.seed + args.population))
+    ts = learner.init_many(seeds)
+    print(f"population replay: {len(seeds)} seeds x {learner.buffer_capacity} rows, "
+          f"{ts.buffer.nbytes()} bytes on {ts.buffer.obs.device}", flush=True)
+
+    steps_per_block = args.rounds_per_block * cfg.train_freq * cfg.num_envs
+    total_blocks = max(1, -(-int(args.total_steps) // steps_per_block))
+
+    def train_many(ts):
+        ts, reward_sum = learner.train_rounds_many(ts, args.rounds_per_block)
+        per_step = float(reward_sum.mean()) / steps_per_block
+        return ts, dict(collect_reward_per_step=per_step)
+
+    ts = run_population_loop(
+        learner, seeds, ts, args,
+        train_many=train_many,
+        total_units=total_blocks,
+        steps_per_unit=steps_per_block,
+        eval_every=args.eval_every_blocks,
+        params_of=lambda ts: ts.actor,
+    )
+    return learner, ts
+
+
 def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("--env", default="usv-simple")
     p.add_argument("--recipe", choices=["none", "at-scale", "robust"], default="none",
                    help="named preset; 'at-scale' = 1024 envs, g64 k4 (16 seq updates of "
                         "batch 1024 per round), lr 3e-4; 'robust' = at-scale trained as a seed "
-                        "population (waits for train/population.py); explicit flags override")
+                        "population in one batched program (default 4, 100k buffer/seed), "
+                        "winner auto-selected and exported; explicit flags override")
     p.add_argument("--total-steps", type=float, default=10e6)  # sb3_train.py:13
     p.add_argument("--num-envs", type=int, default=None)       # default 256
     p.add_argument("--buffer-size", type=int, default=None)    # default 400k
@@ -115,27 +184,36 @@ def build_parser():
     p.add_argument("--resume", action="store_true",
                    help="restore the latest checkpoint from <logdir>/ckpt before training")
     p.add_argument("--video-every-blocks", type=int, default=0,
-                   help="record a policy episode video every N blocks (waits for utils/video.py)")
+                   help="record a policy episode video every N blocks (device-side "
+                        "rollout, host-side rendering)")
     p.add_argument("--population", type=int, default=None,
-                   help="train N seeds as one population (waits for train/population.py)")
+                   help="train N seeds as one batched population and export the winner "
+                        "(default 1; --recipe robust defaults 4)")
     p.add_argument("--cull-at-frac", type=float, default=0.0,
-                   help="population racing cull (waits for train/population.py)")
+                   help="racing: at this fraction of the budget, keep only the --cull-keep "
+                        "best-so-far seeds (0 disables)")
     p.add_argument("--cull-keep", type=int, default=None,
-                   help="seeds surviving the cull (waits for train/population.py)")
+                   help="seeds surviving the cull (default population//2, min 2)")
     p.add_argument("--select-evals", type=int, default=3,
-                   help="re-evals per candidate in population runs (waits for "
-                        "train/population.py)")
+                   help="fresh-seed re-evals per candidate in the final winner selection "
+                        "(population runs)")
     p.add_argument("--device", default=None, help="torch device; default the CUDA device")
     return p
 
 
 def main(argv=None):
-    """Train; returns ``(learner, train_state)`` of the finished run."""
-    from usv_tpu_torch.train.common import refuse_unported
-
+    """Train; returns ``(learner, train_state)`` of the finished run (a
+    population state for ``--population`` > 1)."""
     p = build_parser()
     args = apply_recipe(p.parse_args(argv))
-    refuse_unported(p, args, "--video-every-blocks", args.video_every_blocks)
+    # population.py warns about flags it must ignore only when they differ
+    # from these parser defaults (i.e. the user actually set them)
+    args._parser_defaults = {f: p.get_default(f) for f in vars(args)}
+    if args.population > 1:
+        if args.shard or args.shard_local_replay:
+            p.error("--population is incompatible with --shard (a population "
+                    "already fills the chip; shard single-seed runs instead)")
+        return run_sac_population(args)
     if args.shard or args.shard_local_replay:
         p.error("--shard and --shard-local-replay need the data-parallel layer "
                 "(parallel/, the shard-local buffer), which is not ported yet")
@@ -144,29 +222,11 @@ def main(argv=None):
     from usv_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
     from usv_tpu_torch.train.metrics import MetricLogger, score_eval_stats
     from usv_tpu_torch.train.policy import export_policy, in_run_eval_meta
-    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+    from usv_tpu_torch.train.sac import SacLearner
 
     env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
     handle = make(args.env, device=args.device, **env_kwargs)
-    cfg = SacConfig(
-        buffer_size=args.buffer_size,
-        batch_size=args.batch_size,
-        learning_rate=args.lr,
-        lr_decay_steps=args.lr_decay_steps or None,
-        lr_final_fraction=args.lr_final_frac,
-        learning_starts=args.learning_starts,
-        train_freq=args.train_freq,
-        gradient_steps=args.gradient_steps,
-        use_sde=args.sde,
-        num_envs=args.num_envs,
-        frame_stack=args.frame_stack,
-        lambda_t=args.lambda_t,
-        lambda_s=args.lambda_s,
-        eps_s=args.eps_s,
-        compute_dtype="bfloat16" if args.bf16 else "float32",
-        fused_updates=args.fused_updates,
-        update_fusion=args.update_fusion,
-    )
+    cfg = sac_config(args)
     learner = SacLearner(handle, cfg)
     ts = learner.init(seed=args.seed)
 
@@ -203,6 +263,14 @@ def main(argv=None):
                     args.eval_steps, args.eval_envs))
             if ts.buffer.size > 0:  # wandb.watch analog (needs data)
                 metrics.update(learner.watch(ts))
+        if args.video_every_blocks and block % args.video_every_blocks == 0:
+            from usv_tpu_torch.utils.video import record_rollout_video
+
+            _, vid_reward = record_rollout_video(
+                handle, ts.actor.deterministic, f"{args.logdir}/videos/step_{env_steps}",
+                n_steps=500, seed=block, frame_stack=cfg.frame_stack,
+            )
+            metrics["video_episode_reward"] = vid_reward
         logger.log(env_steps, **metrics)
         print({k: round(v, 3) if isinstance(v, float) else v for k, v in metrics.items()}, flush=True)
         if args.checkpoint_every_blocks and block % args.checkpoint_every_blocks == 0:

@@ -21,6 +21,18 @@ nothing is read back from the device. Gradients come from autograd
 (``torch.autograd.grad`` on the network being stepped, so no gradient reaches
 another), optimizers from ``torch.optim.Adam`` with optax's constants.
 
+A seed population (``init_many``, ``train_rounds_many``,
+``eval_policy_stats_many``: the ``--recipe robust`` path) runs S learners as
+ONE program: the S x num_envs envs are the rows of one ``BatchedEnv``, each
+network is a :class:`~usv_tpu_torch.models.stacked.Stacked` set of S
+members called through one ``vmap``, each replay buffer a member block of
+one set of tensors, one Adam steps every member's parameters, and one
+backward pass on the sum of the members' losses gives every member its own
+gradient. So a population step issues the aten calls of one step whatever
+S is; only the draws grow with S, because member ``i`` draws from its own
+generator, seeded ``seeds[i]``, exactly what the single-seed learner with
+that seed draws: member ``i`` is that learner.
+
 Randomness: one ``torch.Generator`` per run on the learner's device feeds the
 resets, the warm-up actions, the gSDE matrices, the replay indices and the
 update noise. Where the JAX learner splits a key, the collect and update
@@ -36,23 +48,37 @@ from __future__ import annotations
 import copy
 import dataclasses
 import warnings
-from typing import Optional, Tuple
+import types
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from usv_tpu_torch.envs.registry import EnvHandle
 from usv_tpu_torch.models.mlp import DoubleCritic, SquashedGaussianActor
 from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
-from usv_tpu_torch.train.buffer import ReplayBuffer, buffer_add_batch, buffer_init, buffer_sample
+from usv_tpu_torch.models.stacked import Stacked, vmap_members
+from usv_tpu_torch.train.buffer import (
+    ReplayBuffer,
+    buffer_add_batch,
+    buffer_add_many,
+    buffer_init,
+    buffer_init_many,
+    buffer_sample,
+    buffer_sample_many,
+)
 from usv_tpu_torch.train.common import (
     adam,
     derived_seed,
     eval_stats,
+    eval_stats_many,
     global_norm,
     linear_schedule,
     new_generator,
+    per_member,
     seeded_init,
     step_with,
+    take_adam,
+    take_rows,
 )
 from usv_tpu_torch.vector.batch import BatchedEnv, BatchState
 
@@ -125,6 +151,29 @@ class SacTrainState:
     sde: Optional[SdeState] = None  # when cfg.use_sde
 
 
+@dataclasses.dataclass
+class SacPopulationState:
+    """S independent learners as one state: every network a :class:`Stacked`
+    of S members, ``log_alpha`` ``(S,)``, the buffer ``(S, cap, ...)``, the
+    env rows member-major (member ``i``'s envs are rows ``[i*B, (i+1)*B)``),
+    and one generator per member. The counters are shared: every member
+    takes every step."""
+    actor: Stacked
+    critic: Stacked
+    target_critic: Stacked
+    log_alpha: torch.Tensor          # (S,) float32, optimized in place
+    actor_opt: torch.optim.Adam
+    critic_opt: torch.optim.Adam
+    alpha_opt: torch.optim.Adam
+    buffer: ReplayBuffer             # (S, cap, ...) tensors
+    batch: BatchState                # S * num_envs rows
+    generators: List[torch.Generator]
+    seeds: List[int]
+    env_steps: int = 0
+    grad_steps: int = 0
+    sde: Optional[SdeState] = None   # (S * num_envs, ...) when cfg.use_sde
+
+
 class SacLearner:
     """Actor-learner bound to one env family on the handle's device."""
 
@@ -173,6 +222,7 @@ class SacLearner:
                                sanitize=config.sanitize_envs)
         self._low = torch.tensor(self.action_low, dtype=torch.float32, device=self.device)
         self._high = torch.tensor(self.action_high, dtype=torch.float32, device=self.device)
+        self._benv_many = {}  # population BatchedEnvs by member count
 
     # ------------------------------------------------------------------ init
 
@@ -424,3 +474,224 @@ class SacLearner:
         benv = BatchedEnv(self.handle, num_envs, frame_stack=max(1, self.cfg.frame_stack),
                           sanitize=self.cfg.sanitize_envs)
         return eval_stats(benv, seed, actor.deterministic, n_steps)
+
+    # ------------------------------------------------------- seed population
+
+    def population_env(self, members: int) -> BatchedEnv:
+        """The ``BatchedEnv`` of a population of ``members``: their
+        ``members * num_envs`` envs as one batch."""
+        if members not in self._benv_many:
+            self._benv_many[members] = BatchedEnv(
+                self.handle, members * self.cfg.num_envs, frame_stack=max(1, self.cfg.frame_stack),
+                sanitize=self.cfg.sanitize_envs)
+        return self._benv_many[members]
+
+    def init_many(self, seeds: Sequence[int]) -> SacPopulationState:
+        """A population of independent learners, one per seed: member ``i``
+        starts as :meth:`init` ``(seeds[i])`` starts (the same weights, env
+        resets, gSDE matrices and generator state), with an empty buffer of
+        :attr:`buffer_capacity` rows of its own."""
+        cfg, dev, B = self.cfg, self.device, self.cfg.num_envs
+        seeds = [int(s) for s in seeds]
+        actors, critics, generators, uniforms, mats = [], [], [], [], []
+        width = self.handle.n_uniform(self.handle.cfg)
+        for seed in seeds:
+            with seeded_init(seed):
+                actors.append(self.build_actor())
+                critics.append(DoubleCritic(self.obs_dim, self.act_dim, cfg.hidden,
+                                            compute_dtype=self.compute_dtype))
+            g = new_generator(seed, dev)
+            generators.append(g)
+            uniforms.append(torch.rand((B, width), generator=g, dtype=torch.float32, device=dev))
+            if cfg.use_sde:
+                mats.append(init_sde(g, cfg.hidden[-1], self.act_dim, (B,), dev).exploration_mat)
+        actor = Stacked.from_modules([m.to(dev) for m in actors])
+        critic = Stacked.from_modules([m.to(dev) for m in critics])
+        batch, _ = self.population_env(len(seeds)).reset(uniform=torch.cat(uniforms))
+        sde = None
+        if cfg.use_sde:
+            mat = torch.cat(mats)
+            sde = SdeState(exploration_mat=mat, step=torch.zeros(mat.shape[0], dtype=torch.int32,
+                                                                 device=dev))
+        log_alpha = torch.zeros(len(seeds), device=dev, requires_grad=True)
+        lr = self.lr_at(0)
+        return SacPopulationState(
+            actor=actor, critic=critic, target_critic=critic.copy(), log_alpha=log_alpha,
+            actor_opt=adam(actor.params, lr), critic_opt=adam(critic.params, lr),
+            alpha_opt=adam([log_alpha], lr),
+            buffer=buffer_init_many(len(seeds), self.buffer_capacity, self.obs_dim, self.act_dim,
+                                    device=dev),
+            batch=batch, generators=generators, seeds=seeds, sde=sde)
+
+    @torch.no_grad()
+    def _env_cycle_many(self, ps: SacPopulationState):
+        """:meth:`_env_cycle` for every member at once: ``train_freq`` steps
+        of the population's env batch, each member's draws from its own
+        generator in the single learner's order, then one aligned insert of
+        every member's ``train_freq * num_envs`` rows. Returns ``(ps, (S,)
+        reward sums)``."""
+        cfg, dev, B = self.cfg, self.device, self.cfg.num_envs
+        S = len(ps.generators)
+        benv = self.population_env(S)
+        width = self.handle.n_uniform(self.handle.cfg)
+        warmup_steps = -(-cfg.learning_starts // B)
+        rows = {name: [] for name in ReplayBuffer.FIELDS}
+        rewards = []
+        for _ in range(cfg.train_freq):
+            frames = ps.batch.frames
+            obs = frames.reshape(S * B, -1)
+            if cfg.use_sde:
+                normals = per_member(ps.generators, lambda g: torch.randn(
+                    (B, *ps.sde.exploration_mat.shape[1:]), generator=g, device=dev))
+                ps.sde = maybe_resample(ps.sde, None, cfg.sde_sample_freq, normals=normals)
+            if ps.env_steps < warmup_steps:
+                u = per_member(ps.generators, lambda g: torch.rand((B, self.act_dim), generator=g,
+                                                                   device=dev))
+                actions = u * (self._high - self._low) + self._low
+            elif cfg.use_sde:
+                mat = ps.sde.exploration_mat
+                actions = vmap_members(
+                    lambda actor, o, m, k: actor.sample_sde(o, SdeState(exploration_mat=m, step=k)),
+                    [ps.actor], obs.view(S, B, -1), mat.view(S, B, *mat.shape[1:]),
+                    ps.sde.step.view(S, B)).reshape(S * B, -1)
+            else:
+                noise = per_member(ps.generators, lambda g: torch.randn((B, self.act_dim),
+                                                                        generator=g, device=dev))
+                actions = vmap_members(lambda actor, o, n: actor.sample(o, noise=n)[0], [ps.actor],
+                                       obs.view(S, B, -1), noise.view(S, B, -1)).reshape(S * B, -1)
+            reset = per_member(ps.generators, lambda g: torch.rand(
+                (B, width), generator=g, dtype=torch.float32, device=dev))
+            ps.batch, step = benv.step(ps.batch, actions, uniform=reset)
+            terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
+            for name, value in (("obs", obs), ("action", actions), ("reward", step.reward),
+                                ("next_obs", terminal.reshape(S * B, -1)),
+                                ("done", step.terminated.to(torch.float32))):
+                rows[name].append(value.view(S, B, *value.shape[1:]))
+            rewards.append(step.reward.view(S, B).sum(1))
+            ps.env_steps += 1
+        # member-major, then step-major inside a member: the single learner's row order
+        buffer_add_many(ps.buffer, *(torch.stack(rows[name], 1).flatten(1, 2)
+                                     for name in ReplayBuffer.FIELDS))
+        return ps, torch.stack(rewards).sum(0)
+
+    def _update_draws_many(self, ps: SacPopulationState, batch_size: int) -> dict:
+        """Each member's :meth:`_update_draws` from its own generator, stacked
+        on the member axis."""
+        draws = [self._update_draws(ps, batch_size, g) for g in ps.generators]
+        return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+
+    def _critic_loss_many(self, ps: SacPopulationState, batch, noise_next):
+        """Every member's :meth:`_critic_loss` through one ``vmap``: ``(S,)``."""
+        def loss(actor, critic, target, log_alpha, batch, noise_next):
+            view = types.SimpleNamespace(actor=actor, critic=critic, target_critic=target,
+                                         log_alpha=log_alpha)
+            return self._critic_loss(view, batch, noise_next)
+
+        return vmap_members(loss, [ps.actor, ps.critic, ps.target_critic], ps.log_alpha, batch,
+                            noise_next)
+
+    def _actor_loss_many(self, ps: SacPopulationState, batch, noise_actor, noise_spatial):
+        """Every member's :meth:`_actor_loss` through one ``vmap``: ``(S,)``
+        losses and ``(S,)`` mean log-probs."""
+        def loss(actor, critic, log_alpha, batch, noise_actor, noise_spatial):
+            view = types.SimpleNamespace(actor=actor, critic=critic, log_alpha=log_alpha)
+            loss, (mean_logp, _, _, _) = self._actor_loss(view, batch, noise_actor, noise_spatial)
+            return loss, mean_logp
+
+        return vmap_members(loss, [ps.actor, ps.critic], ps.log_alpha, batch, noise_actor,
+                            noise_spatial)
+
+    def _update_once_many(self, ps: SacPopulationState, batch_size: Optional[int] = None,
+                          draws=None):
+        """:meth:`_update_once` for every member at once: the members' critic
+        losses, then actor losses, one backward pass on each sum, one Adam
+        step over the stacked parameters. ``draws``
+        (:meth:`_update_draws_many`'s dict) replaces the draws."""
+        cfg = self.cfg
+        batch_size = batch_size or cfg.batch_size
+        d = draws if draws is not None else self._update_draws_many(ps, batch_size)
+        batch = buffer_sample_many(ps.buffer, d["idx"])
+        lr = self.lr_at(ps.grad_steps)
+
+        loss = self._critic_loss_many(ps, batch, d["noise_next"])
+        grads = torch.autograd.grad(loss.sum(), ps.critic.params)
+        step_with(ps.critic_opt, ps.critic.params, grads, lr)
+
+        loss, mean_logp = self._actor_loss_many(ps, batch, d["noise_actor"], d["noise_spatial"])
+        grads = torch.autograd.grad(loss.sum(), ps.actor.params)
+        step_with(ps.actor_opt, ps.actor.params, grads, lr)
+
+        step_with(ps.alpha_opt, [ps.log_alpha], [-(mean_logp.detach() + self.target_entropy)], lr)
+
+        with torch.no_grad():
+            target = ps.target_critic.params
+            torch._foreach_mul_(target, 1.0 - cfg.tau)
+            torch._foreach_add_(target, torch._foreach_mul(ps.critic.params, cfg.tau))
+        ps.grad_steps += 1
+        return ps
+
+    def train_rounds_many(self, ps: SacPopulationState, n_rounds: int):
+        """:meth:`train_rounds` for the population; the warm-up gate on the
+        shared fill stays a host integer. Returns ``(ps, (S,) summed
+        rewards)``."""
+        cfg = self.cfg
+        rewards = []
+        for _ in range(n_rounds):
+            ps, reward_sum = self._env_cycle_many(ps)
+            rewards.append(reward_sum)
+            if ps.buffer.size >= min(cfg.learning_starts, cfg.buffer_size):
+                for _ in range(self.updates_per_round()):
+                    self._update_once_many(ps, batch_size=self._fusion * cfg.batch_size)
+        return ps, torch.stack(rewards).sum(0)
+
+    def take_members(self, ps: SacPopulationState, keep: Sequence[int]) -> SacPopulationState:
+        """The population of the members ``keep`` (the racing cull): their
+        parameters and target parameters, Adam moments, temperatures, replay
+        rows, env rows, frames, gSDE state and generators, as they were."""
+        idx = torch.as_tensor(list(keep), dtype=torch.long, device=self.device)
+        actor, critic = ps.actor.take(idx), ps.critic.take(idx)
+        log_alpha = ps.log_alpha.detach().index_select(0, idx).requires_grad_(True)
+        B = self.cfg.num_envs
+        buffer = ReplayBuffer(**{f: getattr(ps.buffer, f).index_select(0, idx)
+                                 for f in ReplayBuffer.FIELDS}, ptr=ps.buffer.ptr, size=ps.buffer.size)
+        return SacPopulationState(
+            actor=actor, critic=critic, target_critic=ps.target_critic.take(idx),
+            log_alpha=log_alpha,
+            actor_opt=take_adam(ps.actor_opt, ps.actor.params, actor.params, idx),
+            critic_opt=take_adam(ps.critic_opt, ps.critic.params, critic.params, idx),
+            alpha_opt=take_adam(ps.alpha_opt, [ps.log_alpha], [log_alpha], idx),
+            buffer=buffer, batch=take_rows(ps.batch, idx, B),
+            generators=[ps.generators[i] for i in keep], seeds=[ps.seeds[i] for i in keep],
+            env_steps=ps.env_steps, grad_steps=ps.grad_steps,
+            sde=take_rows(ps.sde, idx, B))
+
+    def module_from(self, params: dict) -> SquashedGaussianActor:
+        """An ordinary actor on the learner's device holding ``params`` (a
+        member's :meth:`Stacked.member`): what the selection evaluates and
+        the export saves."""
+        actor = self.build_actor()
+        actor.load_state_dict(params)
+        return actor.to(self.device)
+
+    def eval_seeds(self, ps: SacPopulationState) -> List[int]:
+        """Each member's :meth:`eval_seed` at this point of the run."""
+        return [derived_seed(seed, ps.env_steps, ps.grad_steps, EVAL_TAG) for seed in ps.seeds]
+
+    def eval_policy_many(self, ps: SacPopulationState, n_steps: int = 500, num_envs: int = 16):
+        """Per-member deterministic eval -> ``(S,)`` mean reward per step."""
+        return self.eval_policy_stats_many(ps, n_steps, num_envs)["reward_per_step"]
+
+    def eval_policy_stats_many(self, ps: SacPopulationState, n_steps: int = 500,
+                               num_envs: int = 16) -> dict:
+        """:meth:`eval_policy_stats` of every member in one batch of
+        ``S * num_envs`` envs, member ``i``'s from its own eval seed: a dict
+        of ``(S,)`` float arrays."""
+        S = len(ps.seeds)
+        benv = BatchedEnv(self.handle, S * num_envs, frame_stack=max(1, self.cfg.frame_stack),
+                          sanitize=self.cfg.sanitize_envs)
+
+        def act(obs):
+            return vmap_members(lambda actor, o: actor.deterministic(o), [ps.actor],
+                                obs.view(S, num_envs, -1)).reshape(S * num_envs, -1)
+
+        return eval_stats_many(benv, self.eval_seeds(ps), act, n_steps)
