@@ -10,7 +10,7 @@ at-scale recipes' widths, and seed populations of both at the robust
 recipes' widths — through the entry points a user calls (``make``,
 ``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
 ``load_policy``, ``batch_policy_metrics``, ``run_sac.main``,
-``run_ppo.main``), after building the ray-cast
+``run_ppo.main``, the gym adapters and ``UsvVectorEnv``), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -92,12 +92,29 @@ version on the card. Phases, each of which exits non-zero on failure:
 17. the device half of a video (``rollout_trace``) for ``usv-simple`` and
     the CA env on the card against the CPU (rendering, which needs pygame
     and cv2 or imageio on the host, is held on the CPU by the tests);
-18. the kernel's device time (CUDA events around a replayed CUDA graph)
+18. the gym surface (``usv_tpu_torch.compat``): the adapters of five
+    families (``UsvSimpleEnv``, ``UsvSimpleAITSMCEnv`` with
+    ``options['params']``, ``UsvAsmcCaEnv``, ``UsvCurvedAitsmcEnv``,
+    ``UsvAsmcEnv``), each on the card against ``device="cpu"`` from the same
+    seeds (the reference's reset draws replayed where the family has them),
+    48 scripted steps with episodes ending and resetting within the run, and
+    the CA scripted-scene options once on both devices: everything but the
+    sensor block at atol=1e-4, the kernel's launches counted per reset and
+    per step; one ``usv-simple`` and one CA adapter's wall ms per step on
+    the card and on the CPU, its aten calls and host waits;
+    ``UsvVectorEnv("usv-simple", 4096, frame_stack=5)`` with numpy in and
+    out beside bare ``BatchedEnv`` in turns, with the bytes it copies to the
+    host; the kernel against its plain version on the adapters' and the
+    vector env's live states; ``install_usv_libs_py()`` (``g++`` builds the
+    native oracle here) and its stub against native ``ASMC.compute`` at
+    1e-12;
+19. the kernel's device time (CUDA events around a replayed CUDA graph)
     beside its plain version's and its bound (the bytes, or the operations
     on the pairs this data needs, counted on the card), at the shapes the
     system launches on live states (the three env paths', the two
-    learners' and the two populations'), and with ``n_acc`` 1, 2 and 4,
-    with no slot valid and for an empty kernel of the same grid.
+    learners', the two populations' and the gym surface's), and with
+    ``n_acc`` 1, 2 and 4, with no slot valid and for an empty kernel of the
+    same grid.
 
 Every phase heading prints the seconds since the script started.
 
@@ -1549,6 +1566,254 @@ def video_traces(device):
     return {"video_trace_card_vs_cpu": out}
 
 
+GYM_STEPS = 48      # each adapter's scripted steps, card against CPU
+GYM_EPISODE = 16    # the adapters' episode length in that run (legacy ids: max_ye)
+GYM_TIMED = 64      # adapter steps timed for usv-simple (CA: a quarter of it)
+VECTOR_STEPS = 32   # UsvVectorEnv at 4096 envs: steps per timed run
+GYM_CA_OPTIONS = {
+    "obs_x": np.array([-6.0, 0.0, 6.0]), "obs_y": np.array([0.0, 0.0, 0.0]),
+    "obs_r": np.array([1.5, 1.5, 1.5]), "start_position": np.array([0.0, -8.0, 0.0]),
+    "target_point": np.array([0.0, 8.0, 0.0]),
+}
+
+
+def adapter_card_vs_cpu(rc, name, kwargs, sensor_from, per_reset, per_step, options=None):
+    """One gym adapter class on the card and with ``device="cpu"``, reset from
+    the same seeds (the reset block is drawn on the host, or the reference's
+    reset draws are replayed there) and stepped with the same scripted
+    actions; both reset from the next seed when an episode ends. Everything
+    but the sensor block agrees at ATOL; a ray may differ only at a grazing
+    tangency (at most 1 in 10^3), the reward only in such a row, the flags and
+    info keys not at all. The kernel launches ``per_reset`` times a reset and
+    ``per_step`` times a step. Returns (the card's env, the record)."""
+    from usv_tpu_torch import compat
+
+    cls = getattr(compat, name)
+    sides = {"cpu": cls(render_mode=None, device="cpu", **kwargs), "card": cls(render_mode=None, **kwargs)}
+    card_env = sides["card"]
+    check(card_env.device.type == "cuda", f"{name}() did not default to the card")
+    cfg = card_env.handle.cfg
+    low, high = np.asarray(cfg.action_low, np.float32), np.asarray(cfg.action_high, np.float32)
+    rng = np.random.default_rng(0)
+    state = {"seed": 5, "resets": 0}
+    legacy = card_env.legacy_api
+
+    def reset():
+        outs = {k: env.reset(seed=state["seed"] + state["resets"], options=options)
+                for k, env in sides.items()}
+        state["resets"] += 1
+        if not legacy:
+            check(sorted(outs["card"][1]) == sorted(outs["cpu"][1]), f"{name}: reset info keys differ")
+            outs = {k: v[0] for k, v in outs.items()}
+        return float(np.abs(outs["card"][:sensor_from] - outs["cpu"][:sensor_from]).max(initial=0.0))
+
+    rc.counter.launches = 0
+    worst = reset()
+    flips = 0
+    for t in range(GYM_STEPS):
+        a = rng.uniform(low, high).astype(np.float32)
+        c, k = sides["cpu"].step(a), sides["card"].step(a)
+        diff = np.abs(k[0] - c[0])
+        worst = max(worst, float(diff[:sensor_from].max()))
+        ray_off = bool((diff[sensor_from:] > ATOL).any())
+        flips += int((diff[sensor_from:] > ATOL).sum())
+        if not ray_off:
+            worst = max(worst, abs(k[1] - c[1]))
+        check(k[2:-1] == c[2:-1], f"{name} step {t}: flags {k[2:-1]} against {c[2:-1]}")
+        check(sorted(k[-1]) == sorted(c[-1]), f"{name} step {t}: info keys differ")
+        check(isinstance(k[0], np.ndarray) and k[0].dtype == np.float32 and isinstance(k[1], float),
+              f"{name}: the step's outputs are not numpy and float")
+        check(worst <= ATOL, f"{name} step {t}: card vs CPU differ by {worst}")
+        if any(k[2:-1]):
+            reset()
+    launches = rc.counter.launches
+    expected = state["resets"] * per_reset + GYM_STEPS * per_step
+    check(launches == expected, f"{name}: {launches} kernel launches, expected {expected} "
+                                f"({state['resets']} resets, {GYM_STEPS} steps)")
+    rays = GYM_STEPS * (cfg.obs_dim - sensor_from)
+    check(flips * 1000 <= max(rays, 1) or rays == 0, f"{name}: {flips} of {rays} rays differ")
+    check(state["resets"] >= 3, f"{name}: only {state['resets'] - 1} episode ends")
+    label = name + (", scripted scene" if options else "")
+    print(f"  {label}: card vs CPU, {GYM_STEPS} steps ({state['resets']} resets): max non-sensor "
+          f"difference {worst:.3g} (atol {ATOL}), {flips} of {rays} rays differ; {launches} kernel "
+          f"launches = {state['resets']} x {per_reset} + {GYM_STEPS} x {per_step}", flush=True)
+    sides["cpu"].close()
+    return card_env, {"max_abs_diff": worst, "rays_differ": flips, "launches": launches,
+                      "resets": state["resets"]}
+
+
+def sync_count(fn, calls):
+    """Host waits for the device per call of ``fn`` (CUDA's synchronising
+    calls, as torch's sync debug mode reports them)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught) / calls
+
+
+def adapter_step_ms(env, steps, action):
+    """Wall ms per adapter step (numpy action in, numpy outputs out), resets
+    apart: the user of one ``gymnasium.make`` env."""
+    env.reset(seed=1)
+    for _ in range(4):
+        env.step(action)
+    total = 0.0
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = env.step(action)
+        total += time.perf_counter() - t0
+        if any(out[2:-1]):
+            env.reset()
+    return total / steps * 1e3
+
+
+def gym_surface(device, card, rc):
+    """The gym surface on the card: five families' adapters against the CPU,
+    the CA scripted scene, one adapter's step time on both devices with its
+    aten calls and host waits, ``UsvVectorEnv`` at 4096 envs beside bare
+    ``BatchedEnv``, the ``usv_libs_py`` stub against the native oracle.
+    Returns the record's ``gym_*`` keys, the largest kernel-vs-plain
+    difference and the live states ``[(label, env_id, cfg, state)]``."""
+    from usv_tpu_torch import compat
+    from usv_tpu_torch.control.aitsmc import AitsmcGains
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.vector import BatchedEnv
+
+    short = {"max_episode_steps": GYM_EPISODE}
+    replay = dict(short, reference_reset_sampling=True)
+    gains = AitsmcGains(k_u=0.15, k_r=0.25, mu_u=0.04, lambda_r=0.12)
+    cases = [  # (class, env id, kwargs, sensor_from, launches per reset, per step, options)
+        ("UsvSimpleEnv", "usv-simple", replay, 15, 0, 1, None),
+        ("UsvSimpleAITSMCEnv", "usv-aitsmc-simple", dict(replay, options={"params": gains}), 15, 0, 1,
+         None),
+        # a CA reset: the drawn scene's bootstrap step, then the replayed one's
+        ("UsvAsmcCaEnv", "usv-asmc-ca-v0", replay, 7, 2, 1, None),
+        # the scripted scene: the drawn scene's bootstrap, then the option's
+        ("UsvAsmcCaEnv", "usv-asmc-ca-v0", short, 7, 2, 1, GYM_CA_OPTIONS),
+        ("UsvCurvedAitsmcEnv", "usv-curved-aitsmc", short, 9, 0, 1, None),
+        # no TimeLimit in the legacy envs: a cross-track bound of 1 m ends episodes
+        ("UsvPidEnv", "usv-pid-v0", {"reference_reset_sampling": True, "max_ye": 1.0}, 6, 0, 0, None),
+    ]
+    record, live, max_err = {}, [], 0.0
+    for name, env_id, kwargs, sensor_from, per_reset, per_step, options in cases:
+        env, out = adapter_card_vs_cpu(rc, name, kwargs, sensor_from, per_reset, per_step, options)
+        key = name + ("_scripted" if options else "")
+        record[key] = out
+        if per_step and not options:
+            max_err = max(max_err, check_kernel_on_live_state(env_id, env.handle.cfg, env._state))
+            live.append((f"gym adapter {name}, its live state,", env_id, env.handle.cfg, env._state))
+        env.close()
+
+    # one adapter's step: wall ms on the card and on the CPU, aten calls,
+    # device kernels and host waits on the card
+    timing = {}
+    for name, action, steps in (("UsvSimpleEnv", np.array([0.6, 0.1], np.float32), GYM_TIMED),
+                                ("UsvAsmcCaEnv", np.array([0.3, 0.2], np.float32), GYM_TIMED // 4)):
+        card_env = getattr(compat, name)(render_mode=None)
+        cpu_env = getattr(compat, name)(render_mode=None, device="cpu")
+        ms = {"card": [], "cpu": []}
+        for side in ("card", "cpu", "cpu", "card"):
+            ms[side].append(adapter_step_ms(card_env if side == "card" else cpu_env, steps, action))
+        card_env.reset(seed=2)
+        a = profiled(lambda: card_env.step(action), 5 if name == "UsvAsmcCaEnv" else 20)
+        syncs = sync_count(lambda: card_env.step(action), 5)
+        timing[name] = {"card_ms_per_step": min(ms["card"]), "cpu_ms_per_step": min(ms["cpu"]),
+                        "card_ms_runs": ms["card"], "cpu_ms_runs": ms["cpu"],
+                        "aten_calls": a["aten_calls"], "device_kernels": a["device_kernels"],
+                        "device_ms": a["device_ms"], "host_syncs": syncs,
+                        "cpu_threads": torch.get_num_threads()}
+        print(f"  {name}: {min(ms['card']):.4f} ms per step on the card, {min(ms['cpu']):.4f} ms on the "
+              f"CPU ({torch.get_num_threads()} threads; best of 2 runs of {steps} steps each, in turns: "
+              f"{[round(x, 4) for x in ms['card']]} and {[round(x, 4) for x in ms['cpu']]}); on the card "
+              f"{a['aten_calls']:.0f} aten calls, {a['device_kernels']:.0f} device kernels, device busy "
+              f"{a['device_ms']:.4f} ms, {syncs:.1f} host waits per step, on {card}", flush=True)
+    record["adapter_step"] = timing
+
+    # UsvVectorEnv at full width beside the bare BatchedEnv, in turns
+    venv = compat.UsvVectorEnv("usv-simple", NUM_ENVS, frame_stack=5)
+    check(venv.device.type == "cuda", "UsvVectorEnv() did not default to the card")
+    actions = np.zeros((NUM_ENVS, 2), np.float32)
+    obs, info = venv.reset(seed=0)
+    check(isinstance(obs, np.ndarray) and obs.shape == (NUM_ENVS, 5 * 143) and info == {},
+          f"UsvVectorEnv reset obs {getattr(obs, 'shape', obs)}")
+    rc.counter.launches = 0
+    out = venv.step(actions)
+    launches = rc.counter.launches
+    check(launches == 1, f"UsvVectorEnv: {launches} kernel launches in a step, expected 1")
+    obs, rew, term, trunc, infos = out
+    arrays = [obs, rew, term, trunc] + [v for k, v in infos.items() if k != "final_obs"]
+    check(all(isinstance(x, np.ndarray) for x in arrays) and infos["final_obs"] is infos["terminal_observation"],
+          "UsvVectorEnv: outputs are not numpy arrays")
+    check(obs.shape == (NUM_ENVS, 715) and obs.dtype == np.float32 and rew.shape == (NUM_ENVS,)
+          and term.dtype == bool and infos["final_obs"].shape == (NUM_ENVS, 143), "UsvVectorEnv shapes")
+    host_bytes = int(sum(x.nbytes for x in arrays))
+    vec_syncs = sync_count(lambda: venv.step(actions), 4)
+
+    def vector_run():
+        venv.reset(seed=3)
+        for _ in range(4):
+            venv.step(actions)
+        total = 0.0
+        t0 = time.perf_counter()
+        for _ in range(VECTOR_STEPS):
+            o, r, te, tr, _ = venv.step(actions)
+            total += float(r.sum()) + float(o[:, 0].sum())
+        check(math.isfinite(total), "UsvVectorEnv: non-finite obs or reward")
+        return (time.perf_counter() - t0) / VECTOR_STEPS * 1e3
+
+    bare = BatchedEnv(make("usv-simple"), NUM_ENVS, frame_stack=5)
+    ms = {"vector": [], "bare": []}
+    rc.counter.launches = 0
+    for side in ("vector", "bare", "bare", "vector"):
+        ms[side].append(vector_run() if side == "vector" else time_steps(bare, VECTOR_STEPS, warm=4)[0])
+    check(rc.counter.launches == 4 * (VECTOR_STEPS + 4),
+          f"UsvVectorEnv and BatchedEnv runs: {rc.counter.launches} kernel launches")
+    rate = {k: NUM_ENVS / (min(v) / 1e3) for k, v in ms.items()}
+    max_err = max(max_err, check_kernel_on_live_state("usv-simple", venv.handle.cfg, venv._state.env))
+    live.append(("UsvVectorEnv usv-simple frame_stack=5, its live state,", "usv-simple", venv.handle.cfg,
+                 venv._state.env))
+    record["vector_env"] = {
+        "num_envs": NUM_ENVS, "frame_stack": 5, "steps_per_run": VECTOR_STEPS,
+        "ms_per_step": min(ms["vector"]), "bare_ms_per_step": min(ms["bare"]),
+        "ms_runs": ms["vector"], "bare_ms_runs": ms["bare"],
+        "env_steps_per_s": rate["vector"], "bare_env_steps_per_s": rate["bare"],
+        "rate_share_of_bare": rate["vector"] / rate["bare"],
+        "host_bytes_per_step": host_bytes, "host_syncs_per_step": vec_syncs, "launches_per_step": launches}
+    print(f"  UsvVectorEnv usv-simple x {NUM_ENVS}, frame_stack=5, numpy in and out: "
+          f"{rate['vector']:.1f} env-steps/s ({min(ms['vector']):.4f} ms per step) beside bare BatchedEnv "
+          f"{rate['bare']:.1f} ({min(ms['bare']):.4f} ms): {rate['vector'] / rate['bare']:.3f} of it "
+          f"(best of 2 runs of {VECTOR_STEPS} steps each, in turns, on {card}); {host_bytes} bytes to the "
+          f"host and {vec_syncs:.1f} host waits per step; 1 kernel launch per step", flush=True)
+    venv.close()
+
+    # the usv_libs_py stub, built here with g++, against the native oracle
+    t0 = time.perf_counter()
+    libs = compat.install_usv_libs_py()
+    from usv_tpu_torch import native
+
+    model = libs.model.DynamicModel(1.0, -2.0, 0.3)
+    sp = libs.controller.ASMCSetpoint()
+    sp.velocity, sp.heading = 0.7, 0.4
+    mh, ch = libs.utils.update_controller_and_model_n(
+        model, libs.controller.ASMC(libs.controller.ASMC.defaultParams()), sp, 10)
+    m2 = native.DynamicModel(1.0, -2.0, 0.3)
+    pose, vel = native.ASMC().compute(m2, 0.7, 0.4, n=10, absolute_heading=True)
+    stub_err = float(max(np.abs(np.array([mh[-1].pose_x, mh[-1].pose_y, mh[-1].pose_psi]) - pose).max(),
+                         np.abs(np.array([mh[-1].vel_x, mh[-1].vel_y, mh[-1].vel_r]) - vel).max()))
+    check(len(mh) == len(ch) == 10 and stub_err <= 1e-12, f"usv_libs_py stub vs native: {stub_err}")
+    record["usv_libs_stub_vs_native"] = stub_err
+    print(f"  install_usv_libs_py(): native built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"({native.library_path().name}); the stub's 10 substeps against native ASMC.compute: "
+          f"{stub_err:.3g} (atol 1e-12)", flush=True)
+    return {"gym_surface": record}, max_err, live
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -1666,6 +1931,9 @@ def main():
         max_err = max(max_err, live_err)
     phase("video rollout traces, card against CPU")
     trace_record = video_traces(device)
+    phase("gym surface: the adapters, UsvVectorEnv, the usv_libs_py stub")
+    gym_record, live_err, gym_live = gym_surface(device, card, rc)
+    max_err = max(max_err, live_err)
     training_live += [("SAC population, its live state before the cull,", "usv-simple", sac_cfg, sac_pop_env),
                       ("PPO population, its live state,", "usv-asmc-ca-v0", ppo_cfg, ppo_pop_env)]
 
@@ -1746,6 +2014,11 @@ def main():
         other_rows.append(time_shape(label, live_args, live_bd, live_args[3]))
     sac_pop_record["sac_population_kernel"] = other_rows[-2]
     ppo_pop_record["ppo_population_kernel"] = other_rows[-1]
+    # the gym surface's shapes on the adapters' and the vector env's live states
+    for label, env_id, live_cfg, live_state in gym_live:
+        live_args, live_bd = live_scene(env_id, live_cfg, live_state)
+        other_rows.append(time_shape(label, live_args, live_bd, live_args[3]))
+    gym_record["gym_surface"]["kernel_rows"] = other_rows[-len(gym_live):]
     kernel_ms, plain_ms, bound_ms = main_row["ms"], main_row["plain_ms"], main_row["bound_ms"]
 
     record = {
@@ -1788,6 +2061,7 @@ def main():
         **member_record,
         **ppo_pop_record,
         **trace_record,
+        **gym_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

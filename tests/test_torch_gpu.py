@@ -28,6 +28,8 @@ CUDA. Run them on a machine with one:
 * Seed populations on the card: a member against the single learner seeded
   like it (SAC and PPO), and the device half of a video (``rollout_trace``)
   against the CPU.
+* The gym surface on the card: the ``usv-simple`` and CA adapters against
+  the CPU from one seed, and ``UsvVectorEnv`` stepping with numpy out.
 """
 
 import itertools
@@ -631,3 +633,57 @@ def test_video_trace_on_card_matches_cpu(cuda, env_id):
     assert (cd == kd).all() and cd.sum() == 3
     assert float((pose(ks) - pose(cs)).abs().max()) <= 1e-4 and float(np.abs(kr - cr).max()) <= 1e-4
     assert pose(k0).device.type == "cpu"  # the trace comes back to the host
+
+
+@pytest.mark.parametrize("name,sensor_from,per_reset", [("UsvSimpleEnv", 15, 0), ("UsvAsmcCaEnv", 7, 2)])
+def test_gym_adapter_on_card_matches_cpu(cuda, name, sensor_from, per_reset):
+    """A gym adapter on the card against ``device="cpu"``, from the same
+    seeds with the reference's reset draws replayed, 40 scripted steps with
+    episodes of 12: the non-sensor obs and the reward within 1e-4, the flags
+    equal, at most 1 ray in 10^3 apart (a grazing tangency). The kernel
+    launches once a step, and twice a CA reset (the drawn scene's bootstrap
+    step, then the replayed one's)."""
+    from usv_tpu_torch import compat
+
+    kw = dict(render_mode=None, reference_reset_sampling=True, max_episode_steps=12)
+    cpu, card = getattr(compat, name)(device="cpu", **kw), getattr(compat, name)(**kw)
+    assert card.device.type == "cuda"
+    cfg = card.handle.cfg
+    rng = np.random.default_rng(1)
+    before, resets, flips = counter.launches, 1, 0
+    np.testing.assert_allclose(card.reset(seed=3)[0], cpu.reset(seed=3)[0], atol=1e-4, rtol=0)
+    for t in range(40):
+        a = rng.uniform(cfg.action_low, cfg.action_high).astype(np.float32)
+        c, k = cpu.step(a), card.step(a)
+        off = np.abs(k[0] - c[0])[sensor_from:] > 1e-4
+        flips += int(off.sum())
+        np.testing.assert_allclose(k[0][:sensor_from], c[0][:sensor_from], atol=1e-4, rtol=0)
+        assert off.any() or abs(k[1] - c[1]) <= 1e-4
+        assert k[2:4] == c[2:4], f"step {t}"
+        assert isinstance(k[0], np.ndarray) and isinstance(k[4]["position"], np.ndarray)
+        if k[2] or k[3]:
+            card.reset(seed=3 + resets)
+            cpu.reset(seed=3 + resets)
+            resets += 1
+    assert resets >= 3 and flips * 1000 <= 40 * (cfg.obs_dim - sensor_from)
+    assert counter.launches == before + resets * per_reset + 40
+
+
+def test_vector_env_on_the_card_returns_numpy(cuda):
+    """``UsvVectorEnv`` on the card: numpy arrays out of every call, one
+    kernel launch per step, the same-step auto-reset's final obs."""
+    from usv_tpu_torch.compat import UsvVectorEnv
+
+    venv = UsvVectorEnv("usv-simple", 512, frame_stack=5, max_episode_steps=3)
+    assert venv.device.type == "cuda"
+    obs, info = venv.reset(seed=0)
+    assert isinstance(obs, np.ndarray) and obs.shape == (512, 715) and info == {}
+    before = counter.launches
+    for _ in range(3):
+        obs, rew, term, trunc, infos = venv.step(np.zeros((512, 2), np.float32))
+    assert counter.launches == before + 3
+    assert obs.dtype == np.float32 and obs.shape == (512, 715) and rew.shape == (512,)
+    assert trunc.dtype == bool and trunc.all()
+    assert all(isinstance(v, np.ndarray) for v in infos.values())
+    assert infos["final_obs"].shape == (512, 143) and np.isfinite(obs).all()
+    venv.close()

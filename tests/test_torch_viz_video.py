@@ -245,6 +245,23 @@ def test_video_recorder_record_episode_and_trigger(tmp_path):
     assert video.video_trigger(1000 * 200) and not video.video_trigger(1001 * 200)
 
 
+def test_record_episode_through_the_gym_adapter(tmp_path):
+    """``record_episode`` driving the port's own ``UsvSimpleEnv`` adapter on
+    the CPU: the frames are its ``render()``, the episode ends at its
+    TimeLimit, and the return is the sum of its step rewards."""
+    from usv_tpu_torch.compat import UsvSimpleEnv
+
+    env = UsvSimpleEnv(render_mode="rgb_array", device="cpu", max_episode_steps=12)
+    path, total = video.record_episode(env, lambda obs: np.array([0.5, 0.0], np.float32),
+                                       tmp_path / "adapter", max_steps=40, seed=3)
+    env.close()
+    assert path is not None and os.path.getsize(path) > 5_000
+    replay = UsvSimpleEnv(render_mode=None, device="cpu", max_episode_steps=12)
+    replay.reset(seed=3)
+    rewards = [replay.step(np.array([0.5, 0.0], np.float32))[1] for _ in range(12)]
+    assert total == pytest.approx(sum(rewards), abs=1e-9)
+
+
 def test_record_rollout_video_writes_a_file(tmp_path):
     handle = tenvs.make("usv-simple", device="cpu")
     path, reward = video.record_rollout_video(

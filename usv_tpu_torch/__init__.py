@@ -11,11 +11,13 @@ exported by the JAX package), the batched evaluation and its CLI. The
 ray-cast sensor that every env with a sensor reaches is a CUDA kernel
 written by hand for ``sm_90a`` (``csrc/raycast.cu``); the rest is eager
 tensor ops and ``nn.Linear``. It trains
-policies too: the replay buffer, the SAC and PPO learners, checkpoints and
-the ``run_sac``/``run_ppo`` CLIs. Subpackages mirror ``usv_tpu`` module for
-module so a reader finds each counterpart at the same path. Not ported yet:
-seed populations (``train/population.py``), the data-parallel layer, the gym
-adapters and the host-side video and plot utilities.
+policies too: the replay buffer, the SAC and PPO learners, checkpoints,
+seed populations and the ``run_sac``/``run_ppo`` CLIs, with the renderers and
+videos; and it carries the reference's gym surface: the eight gymnasium
+adapter classes, ``UsvVectorEnv``, the replay of the reference's reset draws
+and the ``usv_libs_py`` stub over the native C++ oracle. Subpackages mirror
+``usv_tpu`` module for module so a reader finds each counterpart at the same
+path. Not ported yet: the data-parallel layer (``parallel/``, ``--shard*``).
 
 Rules of the port
 -----------------
@@ -27,8 +29,8 @@ Rules of the port
   module it keeps its own copy of. Only the tests import both packages.
 * Entry points run on the card: ``make(..., device=None)``, ``BatchedEnv``,
   ``rollout``, ``throughput``, ``load_policy``, the learners (on their env
-  handle's device) and the ``run_*`` CLIs use ``torch.device("cuda")`` and
-  raise when CUDA is absent.
+  handle's device), the ``run_*`` CLIs, the gym adapters and ``UsvVectorEnv``
+  use ``torch.device("cuda")`` and raise when CUDA is absent.
   The CPU is used only when the caller asks for it (the tests do).
 * Batch-first tensors: an env state is a dataclass of ``(B, ...)`` tensors
   (or of further such dataclasses: ``base``, ``ctrl``, ``dyn``); JAX's
@@ -54,7 +56,12 @@ vector  : ``BatchedEnv``, the frame stack, the rollout and throughput protocol
 models  : MLP, SAC actor and twin critic, PPO actor-critic, gSDE state
 train   : replay buffer, SAC and PPO learners, checkpoints, ``run_sac``/``run_ppo``,
           policy bundles, the batched evaluation, ``run_eval``, metric logging
-utils   : numerical guards, PCHIP path generation, the numpy-only policy
+utils   : numerical guards, PCHIP path generation, the numpy-only policy,
+          the renderers, videos and the streaming IIR filter
+compat  : the gymnasium adapters and their registration, ``UsvVectorEnv``,
+          the reference's reset-draw replay, the ``usv_libs_py`` stub
+native  : the C++ oracle (``usv_native.cpp``, built with ``g++`` on first
+          import) of the dynamics, the controllers and the ray-cast
 convert : carrying JAX states and flax weights (as numpy arrays) across
 """
 
