@@ -10,7 +10,8 @@ at-scale recipes' widths, and seed populations of both at the robust
 recipes' widths — through the entry points a user calls (``make``,
 ``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
 ``load_policy``, ``batch_policy_metrics``, ``run_sac.main``,
-``run_ppo.main``, the gym adapters and ``UsvVectorEnv``), after building the ray-cast
+``run_ppo.main``, the gym adapters and ``UsvVectorEnv``; ``run_sac.main --shard``
+in launched ranks), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -114,7 +115,25 @@ version on the card. Phases, each of which exits non-zero on failure:
     system launches on live states (the three env paths', the two
     learners', the two populations' and the gym surface's), and with
     ``n_acc`` 1, 2 and 4, with no slot valid and for an empty kernel of the
-    same grid.
+    same grid;
+20. data parallel (``usv_tpu_torch.parallel``): ``run_sac.main --recipe
+    at-scale --shard --shard-local-replay`` on ``usv-simple`` in a launched
+    rank, so that its process group is NCCL at world size 1 (2 rounds; one
+    launch a collect step, none an update; the bundle and metrics written),
+    between two unsharded runs of the same CLI in that process (the rate it
+    is compared with);
+    then two ranks on the card over gloo (NCCL refuses two ranks on one
+    GPU) against the same programs on a 2-shard logical mesh in this
+    process: the at-scale SAC config at 2 x 512 envs with shard-local
+    replay (the first round's rows bit for bit, the first update's
+    gradients within 2e-6 of the largest entry, the parameters after it
+    within 2 x lr, the drift after round 2 reported; per rank the ms of a
+    collect step and of an update, an update's collectives with their
+    bytes and ms), one PPO iteration on ``usv-asmc-ca-v0`` at 2 x 128 envs
+    (the reward at rel 1e-4, the parameters within 5e-3), the kernel
+    against its plain version on rank 0's live states (B=512 R=128 K=32,
+    B=128 R=16 K=16, timed in the ``kernels`` line), and
+    ``dryrun_multichip(2, backend="gloo")``.
 
 Every phase heading prints the seconds since the script started.
 
@@ -1814,6 +1833,338 @@ def gym_surface(device, card, rc):
     return {"gym_surface": record}, max_err, live
 
 
+DP_ROUNDS = 2       # phase 20: rounds of the at-scale SAC recipe (64 x 1024 env-steps each)
+DP_RANKS = 2        # phase 20: ranks on the one card (gloo, CUDA tensors)
+
+
+def _cpu_tree(tree):
+    from usv_tpu_torch.envs.types import tree_map
+
+    return tree_map(lambda x: x.cpu(), tree)
+
+
+def _params(*modules):
+    return [p.detach().cpu().clone() for m in modules for p in m.parameters()]
+
+
+def firm_step_gap(params, ref, grads):
+    """The largest gap between two parameter lists after one Adam step from
+    the same values, where the gradient is firm (|g| > 1e-4), relative to
+    max(1, |p|). Adam's first step moves each entry by about lr x sign(g),
+    whatever |g|, so elsewhere two runs part by up to 2 x lr; where the sign
+    is firm they agree to rounding. ``params`` is the critic's, the actor's
+    and the target critic's (which follows the critic), ``grads`` the
+    critic's and the actor's."""
+    n_critic = len(params) - len(grads)
+    masks = [g.abs() > 1e-4 for g in grads] + [g.abs() > 1e-4 for g in grads[:n_critic]]
+    return max(float(torch.where(m, (a - b).abs() / b.abs().clamp(min=1.0), 0.0).max())
+               for a, b, m in zip(params, ref, masks))
+
+
+def _row_digests(buf, shards):
+    """sha256 of each shard block's filled rows, field by field."""
+    import hashlib
+
+    from usv_tpu_torch.train.buffer import ReplayBuffer
+
+    out = {}
+    for j, s in enumerate(shards):
+        digest = hashlib.sha256()
+        for f in ReplayBuffer.FIELDS:
+            x = getattr(buf, f)
+            block = x.reshape(len(shards), -1, *x.shape[1:])[j, :buf.size]
+            digest.update(block.contiguous().cpu().numpy().tobytes())
+        out[s] = digest.hexdigest()
+    return out
+
+
+def _event_ms(fn, count):
+    """ms per call of ``count`` calls of ``fn`` between CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def dp_sac(mesh):
+    """Phase 20 (2), on one rank or on a logical mesh: the at-scale SAC
+    config (1024 envs over the mesh, 64 collect steps and 16 updates of
+    batch 1024 a round, 400x300, gSDE, frame_stack 5, shard-local replay of
+    458,752 rows, learning_starts one round) through two rounds, the first
+    taken apart: its collect (timed, the rows' digests per shard), its first
+    update (the summed gradients, the parameters after it, the collectives'
+    calls, bytes and ms), its other 15 updates (timed). Then the second
+    round and the parameters after it."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.ops import raycast_cuda as rc
+    from usv_tpu_torch.parallel.sharded import shard_sac_train_state
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    cfg = SacConfig(learning_starts=64 * 1024, num_envs=1024, train_freq=64, gradient_steps=64,
+                    update_fusion=4, learning_rate=3e-4, shard_local_replay=True)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="replay capacity rounded")  # phase 10 checks it
+        learner = SacLearner(make("usv-simple"), cfg, mesh=mesh)
+    ts = shard_sac_train_state(learner.init(0), mesh)
+    bs = learner._fusion * cfg.batch_size
+    torch.cuda.synchronize()
+    rc.counter.launches = 0
+    collect_ms = _event_ms(lambda: learner._env_cycle(ts), 1) / cfg.train_freq
+    collect_launches = rc.counter.launches
+    digests = _row_digests(ts.buffer, mesh.shards)
+    rc.counter.launches = 0
+    mesh.traffic.reset()
+    mesh.timed = True
+    trace = {}
+    learner._update_once(ts, bs, trace=trace)
+    mesh.timed = False
+    traffic = dict(calls=mesh.traffic.calls, bytes=mesh.traffic.bytes, ms=mesh.traffic.seconds * 1e3)
+    grads = [g.cpu() for g in trace["critic"]] + [g.cpu() for g in trace["actor"]]
+    first = _params(ts.critic, ts.actor, ts.target_critic)
+    mesh.traffic.reset()
+    update_ms = _event_ms(lambda: learner._update_once(ts, bs), learner.updates_per_round() - 1)
+    untimed = mesh.traffic.calls / (learner.updates_per_round() - 1)
+    update_launches = rc.counter.launches
+    ts, reward = learner.train_rounds(ts, 1)
+    return dict(collect_ms=collect_ms, update_ms=update_ms, collect_launches=collect_launches,
+                update_launches=update_launches, digests=digests, traffic=traffic,
+                calls_per_update=untimed, grads=grads, first=first,
+                after=_params(ts.critic, ts.actor, ts.target_critic), reward=float(reward),
+                grad_steps=ts.grad_steps, lr=learner.lr_at(0), rows=ts.buffer.size,
+                capacity=ts.buffer.capacity, env=_cpu_tree(ts.batch.env),
+                grad_floats=sum(g.numel() for g in grads))
+
+
+def dp_ppo(mesh):
+    """Phase 20 (3), on one rank or on a logical mesh: ``run_ppo --recipe
+    at-scale`` on ``usv-asmc-ca-v0`` (256 envs over the mesh, minibatch
+    2048, fusion 1, one shuffle, 256x256, gSDE, frame_stack 5) at
+    ``--n-steps`` 64, one iteration."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.ops import raycast_cuda as rc
+    from usv_tpu_torch.parallel.sharded import shard_ppo_train_state
+    from usv_tpu_torch.train import run_ppo
+    from usv_tpu_torch.train.ppo import PpoLearner
+
+    args = run_ppo.apply_recipe(run_ppo.build_parser().parse_args(
+        ["--recipe", "at-scale", "--env", "usv-asmc-ca-v0", "--n-steps", str(PPO_N_STEPS),
+         "--total-steps", str(PPO_N_STEPS * 256)]))
+    learner = PpoLearner(make("usv-asmc-ca-v0"), run_ppo.ppo_config(args))
+    ts = shard_ppo_train_state(learner.init(0), mesh)
+    torch.cuda.synchronize()
+    rc.counter.launches = 0
+    mesh.traffic.reset()
+    t0 = time.perf_counter()
+    ts, reward = learner.train_iteration(ts)
+    reward = float(reward)
+    seconds = time.perf_counter() - t0
+    return dict(reward=reward, seconds=seconds, launches=rc.counter.launches, opt_steps=ts.opt_steps,
+                traffic=dict(calls=mesh.traffic.calls, bytes=mesh.traffic.bytes),
+                params=_params(ts.model), env=_cpu_tree(ts.batch.env))
+
+
+def dp_pair_rank():
+    """Phase 20 (2) and (3) on one of two ranks that share the card: gloo
+    carries the collectives (NCCL refuses two ranks on one GPU)."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.parallel.dist import initialize_distributed
+    from usv_tpu_torch.parallel.mesh import make_env_mesh
+
+    initialize_distributed(backend="gloo", device="cuda:0")
+    mesh = make_env_mesh()
+    sac = dp_sac(mesh)
+    handle = make("usv-simple")
+    sac["kernel_err"] = check_kernel_on_live_state("usv-simple", handle.cfg,
+                                                   _to_card(sac["env"]))
+    ppo = dp_ppo(mesh)
+    ppo["kernel_err"] = check_kernel_on_live_state("usv-asmc-ca-v0", make("usv-asmc-ca-v0").cfg,
+                                                   _to_card(ppo["env"]))
+    return dict(rank=mesh.rank, size=mesh.size, backend=mesh.backend, device=str(mesh.device),
+                sac=sac, ppo=ppo)
+
+
+def _to_card(tree):
+    from usv_tpu_torch.envs.types import tree_map
+
+    return tree_map(lambda x: x.cuda(), tree)
+
+
+def dp_world1_rank(logdir):
+    """Phase 20 (1), in a process given a launcher's environment for one
+    rank: ``run_sac.main --recipe at-scale --shard --shard-local-replay``
+    on ``usv-simple`` at full width, ``DP_ROUNDS`` rounds, so that its
+    process group is NCCL on the card at world size 1; before and after it,
+    in the same process, the same run unsharded (with a light checkpoint),
+    the rate it is compared with. Returns the three runs in that order."""
+    import gc
+
+    from usv_tpu_torch.ops import raycast_cuda as rc
+    from usv_tpu_torch.train import run_sac
+
+    round_steps = 64 * 1024
+    runs = []
+    for i, shard in enumerate((False, True, False)):
+        rc.counter.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="replay capacity rounded")  # phase 10 checks it
+            learner, ts = run_sac.main(
+                ["--recipe", "at-scale", "--env", "usv-simple", "--learning-starts", str(round_steps),
+                 "--rounds-per-block", "1", "--eval-every-blocks", "0", "--checkpoint-every-blocks", "0",
+                 "--total-steps", str(DP_ROUNDS * round_steps), "--logdir", f"{logdir}/{i}"]
+                + (["--shard", "--shard-local-replay"] if shard else ["--light-checkpoints"]))
+        seconds = time.perf_counter() - t0
+        cfg, mesh = learner.cfg, ts.mesh
+        runs.append(dict(
+            backend=mesh and mesh.backend, world=mesh and mesh.size, device=mesh and str(mesh.device),
+            launches=rc.counter.launches, grad_steps=ts.grad_steps, env_steps=ts.env_steps,
+            widths=(cfg.num_envs, cfg.train_freq, cfg.gradient_steps, cfg.update_fusion, cfg.hidden,
+                    cfg.frame_stack, cfg.use_sde, cfg.shard_local_replay, learner.buffer_capacity),
+            updates_per_round=learner.updates_per_round(),
+            finite=all(bool(torch.isfinite(p).all()) for m in (ts.actor, ts.critic, ts.target_critic)
+                       for p in m.parameters()),
+            rates=block_rates(f"{logdir}/{i}"), seconds=seconds,
+            files=sorted(os.listdir(f"{logdir}/{i}")),
+            bundle=os.path.exists(f"{logdir}/{i}/policy/policy.json")))
+        del learner, ts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
+
+
+def data_parallel(device, card, time_shape):
+    """Phase 20: the data-parallel layer. (1) ``run_sac`` at world size 1 on
+    NCCL through the CLI; (2) and (3) two ranks on the card (gloo) against
+    the same programs on a 2-shard logical mesh in this process; (4)
+    ``dryrun_multichip(2)``. Returns the record's keys and the kernel rows
+    of the ranks' live states."""
+    from usv_tpu_torch.parallel.dryrun import dryrun_multichip
+    from usv_tpu_torch.parallel.launch import run_ranks
+    from usv_tpu_torch.parallel.mesh import make_env_mesh
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ((before, w1, after),) = run_ranks("chip_smoke:dp_world1_rank", 1, dict(logdir=f"{tmp}/sac"),
+                                           timeout=400, paths=[root], echo=True)
+    plain, bundle = (before, after), w1["bundle"]
+    rounds = DP_ROUNDS
+    check(w1["backend"] == "nccl" and w1["world"] == 1, f"world-1 group: {w1['backend']}, {w1['world']}")
+    check(w1["widths"] == (1024, 64, 64, 4, (400, 300), 5, True, True, 458_752),
+          f"the at-scale recipe with --shard-local-replay resolved to {w1['widths']}")
+    check(w1["launches"] == rounds * 64 and w1["grad_steps"] == rounds * w1["updates_per_round"],
+          f"world 1: {w1['launches']} kernel launches and {w1['grad_steps']} updates in {rounds} rounds "
+          "(one launch a collect step, none an update)")
+    check(w1["finite"] and bundle and "metrics.jsonl" in w1["files"] and len(w1["rates"]) == rounds,
+          f"world 1: finite {w1['finite']}, bundle {bundle}, logdir {w1['files']}")
+    print(f"  (1) run_sac --recipe at-scale --shard --shard-local-replay in a launched rank: process "
+          f"group {w1['backend']} at world size {w1['world']} on {w1['device']}; {rounds} rounds of "
+          f"65536 env-steps with {w1['grad_steps']} updates in {w1['seconds']:.2f} s; env-steps/s per "
+          f"block {[round(r, 1) for r in w1['rates']]}; kernel launches {w1['launches']} = {rounds} x 64 "
+          f"collect steps, none in the updates; bundle and metrics written on {card}", flush=True)
+    check(all(p["launches"] == w1["launches"] and p["grad_steps"] == w1["grad_steps"] for p in plain),
+          f"the unsharded launched runs: {[(p['launches'], p['grad_steps']) for p in plain]}")
+    print(f"      the same run unsharded in that process, before and after it: env-steps/s per block "
+          f"{[[round(r, 1) for r in p['rates']] for p in plain]}; the sharded run's last block "
+          f"{w1['rates'][-1] / max(p['rates'][-1] for p in plain):.3f}x of the faster unsharded one's",
+          flush=True)
+
+    t0 = time.perf_counter()
+    ranks = run_ranks("chip_smoke:dp_pair_rank", DP_RANKS, timeout=400, paths=[root], echo=True)
+    ranks_seconds = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" and r["size"] == DP_RANKS for r in ranks),
+          f"pair: {[(r['backend'], r['size']) for r in ranks]}")
+    logical = make_env_mesh(n_shards=DP_RANKS, device=device)
+    t0 = time.perf_counter()
+    lsac = dp_sac(logical)
+    lppo = dp_ppo(logical)
+    logical_seconds = time.perf_counter() - t0
+
+    sac_rows = []
+    for r in ranks:
+        s = r["sac"]
+        k = r["rank"]
+        check(s["digests"][k] == lsac["digests"][k], f"rank {k}'s first-round rows differ from block {k} "
+                                                      "of the logical run")
+        check(s["collect_launches"] == 64 and s["update_launches"] == 0,
+              f"rank {k}: {s['collect_launches']} launches in a collect, {s['update_launches']} in updates")
+        diff, scale = grad_gap(s["grads"], lsac["grads"])
+        check(diff <= 2e-6 * scale, f"rank {k}'s first-update gradients {diff} from the logical run's ({scale})")
+        first = max(float((a - b).abs().max()) for a, b in zip(s["first"], lsac["first"]))
+        firm = firm_step_gap(s["first"], lsac["first"], lsac["grads"])
+        check(firm <= 2e-7 and first <= 2 * lsac["lr"] + 2e-7,
+              f"rank {k}'s parameters after one update: {firm} from the logical run's where the "
+              f"gradient is firm, {first} anywhere")
+        after = max(float((a - b).abs().max()) for a, b in zip(s["after"], lsac["after"]))
+        check(math.isfinite(after) and s["rows"] == lsac["rows"], f"rank {k}: drift {after}, rows {s['rows']}")
+        t = s["traffic"]
+        check(t["calls"] == 3 and t["bytes"] == 4 * (s["grad_floats"] + 1),
+              f"rank {k}: {t['calls']} collectives, {t['bytes']} bytes in an update")
+        sac_rows.append(dict(rank=k, collect_step_ms=s["collect_ms"], update_ms=s["update_ms"],
+                             collective_calls=t["calls"], collective_bytes=t["bytes"],
+                             collective_ms=t["ms"], grad_max_abs_diff=diff, grad_max_abs=scale,
+                             param_diff_first_update=first, param_diff_first_update_firm=firm,
+                             param_diff_round_2=after,
+                             kernel_max_abs_err=s["kernel_err"]))
+        print(f"  (2) rank {k} of {DP_RANKS} on one card (gloo, CUDA tensors): first-round rows "
+              f"({s['rows']} of {s['capacity']} in its replay block) bit for bit with the logical "
+              f"run's block; first update's gradients {diff:.3g} from it (largest {scale:.3g}); "
+              f"parameters {firm:.3g} apart after it where |g| > 1e-4 (bound 2e-7 x max(1, |p|)), "
+              f"{first:.3g} anywhere (bound 2 x lr = {2 * lsac['lr']:.3g}), "
+              f"{after:.3g} after round 2; {s['collect_ms']:.4f} ms a collect step, {s['update_ms']:.4f} "
+              f"ms an update (CUDA events); an update's collectives: {t['calls']} all-reduces, "
+              f"{t['bytes']} bytes, {t['ms']:.3f} ms (device synchronised around each)", flush=True)
+    print(f"  (2) the logical run in this process: {lsac['collect_ms']:.4f} ms a collect step, "
+          f"{lsac['update_ms']:.4f} ms an update (1024 envs, batch 1024); the pair's launch took "
+          f"{ranks_seconds:.2f} s, the logical runs {logical_seconds:.2f} s, on {card}", flush=True)
+
+    ppo_rows = []
+    for r in ranks:
+        p = r["ppo"]
+        k = r["rank"]
+        drift = max(float((a - b).abs().max()) for a, b in zip(p["params"], lppo["params"]))
+        check(abs(p["reward"] - lppo["reward"]) <= 1e-4 * abs(lppo["reward"]) + 1e-5,
+              f"rank {k}'s PPO reward {p['reward']} against the logical {lppo['reward']}")
+        check(drift < 5e-3, f"rank {k}'s PPO parameters {drift} from the logical run's")
+        check(p["launches"] == 2 * PPO_N_STEPS, f"rank {k}: {p['launches']} launches in {PPO_N_STEPS} steps")
+        ppo_rows.append(dict(rank=k, reward=p["reward"], param_max_abs_diff=drift, seconds=p["seconds"],
+                             collective_calls=p["traffic"]["calls"], collective_bytes=p["traffic"]["bytes"],
+                             opt_steps=p["opt_steps"], kernel_max_abs_err=p["kernel_err"]))
+        print(f"  (3) PPO rank {k}: reward {p['reward']:.6g} (logical {lppo['reward']:.6g}), parameters "
+              f"{drift:.3g} max-abs from the logical run's; {p['launches']} launches (2 a collect step); "
+              f"{p['traffic']['calls']} collectives, {p['traffic']['bytes']} bytes for {p['opt_steps']} "
+              f"optimizer steps; iteration {p['seconds']:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DP_RANKS, backend="gloo")
+    dry_seconds = time.perf_counter() - t0
+    check([d["grad_steps"] for d in dry] == [4] * DP_RANKS, f"dryrun: {dry}")
+    print(f"  (4) dryrun_multichip({DP_RANKS}, backend='gloo') on the card: {dry_seconds:.2f} s", flush=True)
+
+    rank0 = next(r for r in ranks if r["rank"] == 0)
+    rows = []
+    for label, env_id, env in (("data-parallel SAC, rank 0's live state,", "usv-simple", rank0["sac"]["env"]),
+                               ("data-parallel PPO, rank 0's live state,", "usv-asmc-ca-v0",
+                                rank0["ppo"]["env"])):
+        from usv_tpu_torch.envs import make
+
+        args, bd = live_scene(env_id, make(env_id).cfg, _to_card(env))
+        rows.append(time_shape(label, args, bd, args[3]))
+    record = {"data_parallel": {
+        "world1": {k: w1[k] for k in ("backend", "world", "device", "launches", "grad_steps", "rates", "seconds")},
+        "world1_unsharded_rates": [p["rates"] for p in plain],
+        "sac_ranks": sac_rows, "ppo_ranks": ppo_rows,
+        "logical": dict(collect_step_ms=lsac["collect_ms"], update_ms=lsac["update_ms"],
+                        ppo_reward=lppo["reward"], ppo_seconds=lppo["seconds"]),
+        "dryrun_seconds": dry_seconds, "kernel_rows": rows,
+        "seconds": time.perf_counter() - t_phase}}
+    err = max([r["kernel_max_abs_err"] for r in sac_rows + ppo_rows])
+    return record, err, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2021,6 +2372,11 @@ def main():
     gym_record["gym_surface"]["kernel_rows"] = other_rows[-len(gym_live):]
     kernel_ms, plain_ms, bound_ms = main_row["ms"], main_row["plain_ms"], main_row["bound_ms"]
 
+    phase("data parallel: run_sac --shard at world 1 (NCCL), two ranks on the card (gloo)")
+    dp_record, live_err, dp_rows = data_parallel(device, card, time_shape)
+    max_err = max(max_err, live_err)
+    other_rows += dp_rows
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -2062,6 +2418,7 @@ def main():
         **ppo_pop_record,
         **trace_record,
         **gym_record,
+        **dp_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

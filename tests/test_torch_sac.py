@@ -53,6 +53,7 @@ from usv_tpu.utils import numpy_policy as jnumpy_policy
 from usv_tpu_torch import convert
 from usv_tpu_torch import envs as tenvs
 from usv_tpu_torch.models.sde import SdeState
+from usv_tpu_torch.parallel import make_env_mesh
 from usv_tpu_torch.train import checkpoint, common, policy as tpolicy, sac as tsac
 from usv_tpu_torch.vector import BatchState
 
@@ -426,8 +427,12 @@ def test_warmup_switch_update_gate_and_capacity_warning():
     handle = tenvs.make("usv-simple", device="cpu")
     with pytest.raises(ValueError, match="divide"):
         tsac.SacLearner(handle, tsac.SacConfig(**dict(SMALL, gradient_steps=4, update_fusion=3)))
-    with pytest.raises(NotImplementedError, match="Slice F"):
+    # shard-local replay needs the mesh, and widths that divide it (JAX's checks)
+    with pytest.raises(ValueError, match="needs the device mesh"):
         tsac.SacLearner(handle, tsac.SacConfig(**dict(SMALL, shard_local_replay=True)))
+    with pytest.raises(ValueError, match="must divide the mesh size"):
+        tsac.SacLearner(handle, tsac.SacConfig(**dict(SMALL, shard_local_replay=True)),
+                        mesh=make_env_mesh(n_shards=3))
 
 
 def _snapshot(ts):

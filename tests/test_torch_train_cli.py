@@ -6,10 +6,10 @@
   replays the record exactly; an SAC run stopped and ``--resume``d ends bit
   for bit where an uninterrupted run ends (light checkpoints resume too).
 * Both ``apply_recipe``s resolve a table of flag sets as the JAX package's.
-* The flags whose code waits for a later part of the port (``--shard``,
-  ``--shard-local-replay``: the data-parallel layer) are parser errors that
-  name it, as are the flag combinations the JAX CLIs refuse; without
-  ``--device`` the CLIs run on the card and raise without one.
+* The flag combinations the JAX CLIs refuse are parser errors (a seed
+  population with ``--shard`` or ``--shard-local-replay``, the robust recipe
+  included, names the data-parallel layer); without ``--device`` the CLIs
+  run on the card and raise without one.
 """
 
 import argparse
@@ -137,8 +137,8 @@ def test_ppo_recipe_resolution_matches_jax(argv):
 
 
 @pytest.mark.parametrize("cli,argv,word", [
-    (run_sac, ["--shard"], "data-parallel"),
-    (run_sac, ["--shard-local-replay"], "data-parallel"),
+    (run_sac, ["--population", "2", "--shard-local-replay"], "data-parallel"),
+    (run_sac, ["--recipe", "robust", "--shard"], "data-parallel"),
     (run_sac, ["--population", "2", "--shard"], "incompatible with --shard"),
     (run_ppo, ["--rotate-groups"], "--shuffle-groups"),
     (run_eval, ["--replay-recorded-eval"], "--policy"),

@@ -17,7 +17,8 @@ videos; and it carries the reference's gym surface: the eight gymnasium
 adapter classes, ``UsvVectorEnv``, the replay of the reference's reset draws
 and the ``usv_libs_py`` stub over the native C++ oracle. Subpackages mirror
 ``usv_tpu`` module for module so a reader finds each counterpart at the same
-path. Not ported yet: the data-parallel layer (``parallel/``, ``--shard*``).
+path. It trains data-parallel too (``parallel/``: one process per rank over
+``torch.distributed``, the shard-local replay, ``run_sac --shard``).
 
 Rules of the port
 -----------------
@@ -62,6 +63,8 @@ compat  : the gymnasium adapters and their registration, ``UsvVectorEnv``,
           the reference's reset-draw replay, the ``usv_libs_py`` stub
 native  : the C++ oracle (``usv_native.cpp``, built with ``g++`` on first
           import) of the dynamics, the controllers and the ray-cast
+parallel: the env mesh over ``torch.distributed`` ranks (or logical shards),
+          sharded train states, the rank launcher, ``dryrun_multichip``
 convert : carrying JAX states and flax weights (as numpy arrays) across
 """
 

@@ -12,9 +12,14 @@ tensors with a leading member axis ``(S, cap, ...)``: every member writes its
 own rows at the one shared write head, and :func:`buffer_sample_many` gathers
 each member's own indices in one indexed read per field.
 
-The shard-local variants of the JAX module (``buffer_add_traj_local``,
-``buffer_sample_local``, ``buffer_reshard_local``) belong to the data-parallel
-layer and wait for it.
+Under the data-parallel layer (``usv_tpu_torch/parallel``) the capacity axis
+is sharded: with shard-local replay (:func:`buffer_add_traj_local`,
+:func:`buffer_sample_local`) it is ``n`` contiguous blocks, one a shard, and
+``ptr``/``size`` count a block's LOCAL rows (the same in every block: all envs
+step in lockstep). Rank ``k`` of a process group holds block ``k`` alone; a
+logical mesh holds all ``n`` in one tensor and works block by block.
+:func:`buffer_reshard_local` re-lays such a buffer's content over another
+shard count (a checkpoint restored on another topology).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from usv_tpu_torch.train.common import derived_seed, new_generator
 
 
 @dataclasses.dataclass
@@ -34,6 +41,10 @@ class ReplayBuffer:
     done: torch.Tensor       # (cap,)  1.0 where terminated (not truncated)
     ptr: int = 0             # next write position
     size: int = 0            # current fill
+    # the global capacity axis is ``blocks`` contiguous blocks, each with this
+    # ptr and size: n under shard-local replay on an n-shard mesh, else 1.
+    # A rank's buffer is one of them and keeps the global count.
+    blocks: int = 1
 
     FIELDS = ("obs", "action", "reward", "next_obs", "done")
 
@@ -46,13 +57,13 @@ class ReplayBuffer:
 
 
 def buffer_init(capacity: int, obs_dim: int, act_dim: int, dtype=torch.float32,
-                device="cpu") -> ReplayBuffer:
+                device="cpu", blocks: int = 1) -> ReplayBuffer:
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return ReplayBuffer(obs=zeros(capacity, obs_dim), action=zeros(capacity, act_dim),
                         reward=zeros(capacity), next_obs=zeros(capacity, obs_dim),
-                        done=zeros(capacity))
+                        done=zeros(capacity), blocks=blocks)
 
 
 def buffer_add_batch(buf: ReplayBuffer, obs, action, reward, next_obs, done,
@@ -134,3 +145,137 @@ def buffer_sample_many(buf: ReplayBuffer, idx: torch.Tensor) -> dict:
     for all members at once: a dict of ``(S, batch, ...)`` tensors."""
     members = torch.arange(idx.shape[0], device=idx.device)[:, None]
     return {name: getattr(buf, name)[members, idx] for name in ReplayBuffer.FIELDS}
+
+
+# --------------------------------------------------------------------------
+# Shard-local variants (the data-parallel layer). Each shard appends its OWN
+# envs' transitions to its OWN capacity block and samples batch_size/n rows
+# of it; because the blocks fill equally, the union batch is a stratified
+# uniform sample of the whole buffer. The replay then moves no rows between
+# ranks: the gradient sums are the only steady-state collectives. A buffer
+# written in local mode is not interchangeable with global mode (ptr/size
+# count a block's rows).
+# --------------------------------------------------------------------------
+
+
+def _global_sizes(buf: ReplayBuffer, width: int, mesh):
+    """(global capacity, global env width) of a buffer and a batch that may
+    be one rank's share."""
+    n_here = 1 if mesh.logical else mesh.size
+    return buf.capacity * n_here, width * n_here
+
+
+def buffer_add_traj_local(buf: ReplayBuffer, traj: dict, mesh) -> ReplayBuffer:
+    """Shard-local insert of a ``(T, B, ...)`` trajectory dict, in place.
+
+    Each shard flattens its ``(T, B/n, ...)`` rows step-major and writes
+    them at its block's write head (an aligned slice copy: the block's
+    capacity must be a multiple of the shard's ``T*B/n`` rows, which holds
+    when capacity % (T*B) == 0). On a rank, ``traj`` and ``buf`` are the
+    rank's share. Returns ``buf``."""
+    n = mesh.size
+    t, width = traj["obs"].shape[:2]
+    cap, b = _global_sizes(buf, width, mesh)
+    if b % n or cap % n:
+        raise ValueError(f"num_envs ({b}) and capacity ({cap}) must divide "
+                         f"the mesh axis ({n})")
+    local_cap, local_b = cap // n, b // n
+    if local_cap % (t * local_b):
+        raise ValueError("local capacity must be a multiple of the local "
+                         "write block for aligned inserts")
+    if buf.blocks != n:
+        if buf.size:
+            raise ValueError(f"a buffer of {buf.blocks} block(s) holding rows takes no "
+                             f"shard-local insert on {n} shards; see buffer_reshard_local")
+        buf.blocks = n
+    rows = t * local_b
+    for j, s in enumerate(mesh.shards):
+        lo = (s if mesh.logical else 0) * local_b
+        start = j * local_cap + buf.ptr
+        for name in ReplayBuffer.FIELDS:
+            src = traj[name][:, lo:lo + local_b]
+            getattr(buf, name)[start:start + rows].copy_(src.reshape(rows, *src.shape[2:]))
+    buf.ptr = (buf.ptr + rows) % local_cap
+    buf.size = min(buf.size + rows, local_cap)
+    return buf
+
+
+def buffer_sample_local(buf: ReplayBuffer, batch_size: int, mesh, seed: int = 0,
+                        idx: Optional[torch.Tensor] = None) -> dict:
+    """Stratified shard-local sample: ``batch_size/n`` rows of each shard's
+    block, drawn uniformly from its fill by a generator seeded
+    ``derived_seed(seed, shard)`` (the counterpart of JAX's
+    ``fold_in(key, shard)``). ``idx`` (``(n, batch_size/n)`` block-local
+    indices, e.g. JAX's draws) replaces the draws. Returns this process's
+    rows of the batch, shard-major (all of them on a logical mesh)."""
+    n = mesh.size
+    if batch_size % n:
+        raise ValueError(f"batch_size ({batch_size}) must divide the mesh "
+                         f"axis ({n})")
+    local_bs = batch_size // n
+    local_cap = buf.capacity // len(mesh.shards)
+    device = buf.obs.device
+    rows = []
+    for j, s in enumerate(mesh.shards):
+        if idx is None:
+            g = new_generator(derived_seed(seed, s), device)
+            ix = torch.randint(0, max(buf.size, 1), (local_bs,), generator=g, device=device)
+        else:
+            ix = idx[s].to(device)
+        rows.append(ix + j * local_cap)
+    rows = torch.cat(rows)
+    return {name: getattr(buf, name).index_select(0, rows) for name in ReplayBuffer.FIELDS}
+
+
+def buffer_reshard_local(buf: ReplayBuffer, n_src: int, n_dst: int,
+                         insert_rows: Optional[int] = None) -> ReplayBuffer:
+    """Re-lay a SHARD-LOCAL buffer's content (the whole buffer, as one
+    process holds it after a restore) from ``n_src`` to ``n_dst`` blocks:
+    each source block's valid rows oldest first, concatenated shard-major,
+    dealt into ``n_dst`` equal blocks. Capacity and the row multiset are
+    kept; only which shard samples which row changes.
+
+    Raises ``ValueError`` when the re-layout is not defined: a capacity that
+    does not divide either count, or a total row count that does not divide
+    the destination shards. ``insert_rows`` (the destination's per-shard
+    write block, ``train_freq * num_envs // n_dst`` for SAC) makes it refuse
+    a write head that the aligned insert could not continue from."""
+    cap = buf.capacity
+    if n_src < 1 or n_dst < 1 or cap % n_src or cap % n_dst:
+        raise ValueError(
+            f"capacity {cap} must divide both shard counts "
+            f"(src {n_src}, dst {n_dst})"
+        )
+    if n_src == n_dst:
+        return buf
+    local_src, local_dst = cap // n_src, cap // n_dst
+    size, ptr = buf.size, buf.ptr
+    total = n_src * size
+    if total % n_dst:
+        raise ValueError(
+            f"cannot reshard: {n_src} shards x {size} local rows = {total} "
+            f"total rows does not divide {n_dst} destination shards; train "
+            f"for a whole number of insert blocks first"
+        )
+    size_dst = total // n_dst
+    if insert_rows is not None:
+        if local_dst % insert_rows or size_dst % insert_rows:
+            raise ValueError(
+                f"resharded write head {size_dst} (local capacity "
+                f"{local_dst}) is not aligned to the destination "
+                f"insert block of {insert_rows} rows; continuing would "
+                f"corrupt wrapping inserts — adjust num_envs/train_freq "
+                f"or the shard count so the block divides both"
+            )
+
+    def re(x):
+        blocks = x.reshape(n_src, local_src, *x.shape[1:])
+        if size == local_src and ptr != 0:
+            blocks = torch.roll(blocks, -ptr, dims=1)  # a full ring: the oldest row sits at ptr
+        rows = blocks[:, :size].reshape(total, *x.shape[1:])
+        out = torch.zeros((n_dst, local_dst, *x.shape[1:]), dtype=x.dtype, device=x.device)
+        out[:, :size_dst] = rows.reshape(n_dst, size_dst, *x.shape[1:])
+        return out.reshape(x.shape)
+
+    return ReplayBuffer(**{name: re(getattr(buf, name)) for name in ReplayBuffer.FIELDS},
+                        ptr=size_dst % local_dst, size=size_dst, blocks=n_dst)

@@ -39,6 +39,7 @@ from usv_tpu_torch.envs.types import tree_map
 from usv_tpu_torch.models.mlp import PpoActorCritic
 from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
 from usv_tpu_torch.models.stacked import Stacked, vmap_members
+from usv_tpu_torch.parallel.mesh import EnvMesh, per_shard, unshard_env_batch
 from usv_tpu_torch.train.common import (
     adam,
     clip_by_global_norm,
@@ -155,6 +156,7 @@ class PpoTrainState:
     update_count: int = 0           # iterations done
     opt_steps: int = 0              # optimizer steps done (the lr schedule's count)
     sde: Optional[SdeState] = None  # when cfg.use_sde
+    mesh: Optional[EnvMesh] = None  # set by shard_ppo_train_state
 
 
 @dataclasses.dataclass
@@ -223,41 +225,53 @@ class PpoLearner:
         """``n_steps`` steps of every env -> ``(ts, traj, last_value)``;
         ``traj`` maps obs, action, logp, value, reward (bootstrap-augmented,
         for GAE), raw_reward (the env's) and done to ``(n_steps, num_envs,
-        ...)`` tensors.
+        ...)`` tensors (this process's envs on a rank).
 
         The action is clipped to the env's bounds before the step; the
         log-prob keeps the unclipped action, as SB3 does. ``draws``: one dict
-        per step with ``resample`` (gSDE normals) or ``noise``, and
-        ``reset`` (the auto-reset's uniform block)."""
-        cfg = self.cfg
+        per step with ``resample`` (gSDE normals) or ``noise``, and ``reset``
+        (the auto-reset's uniform block), at the global width; a rank keeps
+        its envs' rows of every draw."""
+        cfg, dev = self.cfg, self.device
         B = cfg.num_envs
+        mesh = ts.mesh
+        rows = mesh.local if mesh is not None else (lambda x: x)
+        width = self.handle.n_uniform(self.handle.cfg)
         cols = {k: [] for k in ("obs", "action", "logp", "value", "reward", "raw_reward", "done")}
         for t in range(cfg.n_steps):
             d = draws[t] if draws is not None else {}
             frames = ts.batch.frames
-            obs = frames.reshape(B, -1)
+            obs = frames.reshape(frames.shape[0], -1)
             if cfg.use_sde:
-                ts.sde = maybe_resample(ts.sde, ts.generator, cfg.sde_sample_freq,
-                                        normals=d.get("resample"))
-                action, logp, value = ts.model.sample_sde(obs, ts.sde)
+                normals = d.get("resample")
+                if normals is None:
+                    normals = torch.randn((B, *ts.sde.exploration_mat.shape[1:]),
+                                          generator=ts.generator, device=dev)
+                ts.sde = maybe_resample(ts.sde, None, cfg.sde_sample_freq, normals=rows(normals))
+                action, logp, value = per_shard(mesh, ts.model.sample_sde, obs, ts.sde)
             else:
-                action, logp, value = ts.model.sample(obs, generator=ts.generator,
-                                                      noise=d.get("noise"))
+                noise = d.get("noise")
+                if noise is None:
+                    noise = torch.randn((B, self.act_dim), generator=ts.generator, device=dev)
+                action, logp, value = per_shard(mesh, lambda o, n: ts.model.sample(o, noise=n),
+                                                obs, rows(noise))
             clipped = torch.clamp(action, self._low, self._high)
-            ts.batch, step = self.benv.step(ts.batch, clipped, generator=ts.generator,
-                                            uniform=d.get("reset"))
+            reset = d.get("reset")
+            if reset is None:
+                reset = torch.rand((B, width), generator=ts.generator, dtype=torch.float32, device=dev)
+            ts.batch, step = self.benv.step(ts.batch, clipped, uniform=rows(reset))
             # time-limit bootstrap, SB3-style: a truncated (not terminated)
             # episode adds gamma * V(terminal obs), so that GAE can treat
             # every done as terminal
             truncated_only = (step.truncated & ~step.terminated).to(torch.float32)
             terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
-            terminal_value = ts.model.value_only(terminal.reshape(B, -1))
+            terminal_value = per_shard(mesh, ts.model.value_only, terminal.reshape(obs.shape[0], -1))
             reward = step.reward + cfg.gamma * terminal_value * truncated_only
             for k, v in (("obs", obs), ("action", action), ("logp", logp), ("value", value),
                          ("reward", reward), ("raw_reward", step.reward),
                          ("done", step.done.to(torch.float32))):
                 cols[k].append(v)
-        last_value = ts.model.value_only(ts.batch.frames.reshape(B, -1))
+        last_value = per_shard(mesh, ts.model.value_only, ts.batch.frames.reshape(obs.shape[0], -1))
         return ts, {k: torch.stack(v) for k, v in cols.items()}, last_value
 
     @staticmethod
@@ -278,61 +292,99 @@ class PpoLearner:
 
     # -------------------------------------------------------------- update
 
-    def _loss(self, model: PpoActorCritic, batch, clip_range, ent_coef, vf_coef):
+    def _loss(self, model: PpoActorCritic, batch, clip_range, ent_coef, vf_coef,
+              total: Optional[int] = None, mesh: Optional[EnvMesh] = None):
+        """The clipped surrogate, the value loss and the entropy bonus. With
+        ``total`` (on ranks: the minibatch's global row count) this process's
+        rows give their share of the global means, and the advantage is
+        normalised by the minibatch's global mean and population std, summed
+        over the ranks in two passes."""
         logp, entropy, value = model.log_prob(batch["obs"], batch["action"])
         ratio = torch.exp(logp - batch["logp"])
         adv = batch["adv"]
-        # the population standard deviation, as jnp.std (torch's default is ddof 1)
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        if total is None:
+            # the population standard deviation, as jnp.std (torch's default is ddof 1)
+            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+
+            def mean(x):
+                return x.mean()
+        else:
+            mu = mesh.all_sum([adv.sum()])[0] / total
+            var = mesh.all_sum([torch.square(adv - mu).sum()])[0] / total
+            adv = (adv - mu) / (torch.sqrt(var) + 1e-8)
+
+            def mean(x):
+                return x.sum() / total
         pg1 = adv * ratio
         pg2 = adv * torch.clamp(ratio, 1.0 - clip_range, 1.0 + clip_range)
-        pg_loss = -torch.minimum(pg1, pg2).mean()
-        v_loss = torch.square(value - batch["ret"]).mean()
-        ent_loss = -entropy.mean()
+        pg_loss = -mean(torch.minimum(pg1, pg2))
+        v_loss = mean(torch.square(value - batch["ret"]))
+        ent_loss = -mean(entropy)
         return pg_loss + vf_coef * v_loss + ent_coef * ent_loss
 
-    def _minibatch_step(self, ts: PpoTrainState, batch) -> None:
-        """One optimizer step: gradients, optax's clip by global norm, Adam at
-        the schedule's learning rate."""
+    def _minibatch_step(self, ts: PpoTrainState, batch, total: Optional[int] = None) -> None:
+        """One optimizer step: gradients (summed over the ranks), optax's clip
+        by global norm, Adam at the schedule's learning rate."""
         cfg = self.cfg
         params = list(ts.model.parameters())
-        loss = self._loss(ts.model, batch, cfg.clip_range, cfg.ent_coef, cfg.vf_coef)
-        grads = clip_by_global_norm(torch.autograd.grad(loss, params), cfg.max_grad_norm)
+        loss = self._loss(ts.model, batch, cfg.clip_range, cfg.ent_coef, cfg.vf_coef, total, ts.mesh)
+        grads = torch.autograd.grad(loss, params)
+        if total is not None:
+            grads = ts.mesh.all_sum(grads)
+        grads = clip_by_global_norm(grads, cfg.max_grad_norm)
         step_with(ts.opt, params, grads, self.lr_at(ts.opt_steps))
         ts.opt_steps += 1
 
-    def _minibatches(self, traj, advs, returns):
+    def _minibatches(self, traj, advs, returns, mesh: Optional[EnvMesh] = None):
         """-> ``(draw, batches, n_batches)``: ``draw(generator)`` makes one
         shuffle's permutations; ``batches(perms)`` lays the rollout out as
-        ``(n_batches, eff_batch, ...)`` tensors under them."""
+        ``(n_batches, eff_batch, ...)`` tensors under them.
+
+        On ranks ``batches(perms)`` is a list of ``n_batches`` dicts: this
+        rank's rows of each global minibatch (row ``t*B + b`` of the rollout
+        belongs to the rank holding env ``b``), found in one read-back per
+        shuffle. No rollout row moves between ranks."""
         cfg = self.cfg
-        n_total = cfg.n_steps * cfg.num_envs
+        T = traj["obs"].shape[0]
+        B = cfg.num_envs
+        n_total = cfg.n_steps * B
         obs_dtype = torch.bfloat16 if cfg.rollout_obs_bf16 else torch.float32
         eff_batch = cfg.batch_size * max(1, cfg.update_fusion)
         n_batches = n_total // eff_batch
+        rollout = dict(obs=traj["obs"].to(obs_dtype), action=traj["action"], logp=traj["logp"],
+                       adv=advs, ret=returns)
+        ranks = mesh is not None and not mesh.logical
         if cfg.shuffle_groups > 1:
-            rollout = dict(obs=traj["obs"].to(obs_dtype), action=traj["action"],
-                           logp=traj["logp"], adv=advs, ret=returns)
-
             def draw(generator):
                 return group_permutations(generator, cfg.shuffle_groups,
                                           n_total // cfg.shuffle_groups, self.device)
 
-            def batches(perms):
-                return apply_grouped_minibatches(rollout, cfg.shuffle_groups, eff_batch, perms)
+            def layout(tree, perms):
+                return apply_grouped_minibatches(tree, cfg.shuffle_groups, eff_batch, perms)
         else:
-            flat = dict(obs=traj["obs"].reshape(n_total, -1).to(obs_dtype),
-                        action=traj["action"].reshape(n_total, -1),
-                        logp=traj["logp"].reshape(n_total), adv=advs.reshape(n_total),
-                        ret=returns.reshape(n_total))
-
             def draw(generator):
                 return torch.randperm(n_total, generator=generator, device=self.device)
 
-            def batches(perm):
+            def layout(tree, perm):
                 keep = perm[: n_batches * eff_batch]
-                return {k: v.index_select(0, keep).reshape(n_batches, eff_batch, *v.shape[1:])
-                        for k, v in flat.items()}
+                return {k: v.reshape(n_total, *v.shape[2:]).index_select(0, keep)
+                        .reshape(n_batches, eff_batch, *v.shape[2:]) for k, v in tree.items()}
+        if not ranks:
+            return draw, lambda perms: layout(rollout, perms), n_batches
+
+        flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in rollout.items()}
+        lo, hi = mesh.bounds(B)
+        ids = torch.arange(n_total, device=self.device).reshape(T, B)
+
+        def batches(perms):
+            g = layout({"id": ids}, perms)["id"]  # (n_batches, eff_batch) global rollout rows
+            env = g % B
+            mine = (env >= lo) & (env < hi)
+            counts = mine.sum(1).tolist()  # waits for the device
+            local = ((g // B) * (hi - lo) + env - lo)[mine]
+            parts = torch.split(local, counts)
+            return [{k: v.index_select(0, rows) for k, v in flat.items()} for rows in parts]
+
         return draw, batches, n_batches
 
     def _update(self, ts: PpoTrainState, traj, last_value, draws=None):
@@ -342,8 +394,11 @@ class PpoLearner:
         ``reshuffle_epochs``, else one) and ``rotate`` (the env permutation
         of the group rotation)."""
         cfg = self.cfg
+        mesh = ts.mesh
+        ranks = mesh is not None and not mesh.logical
         advs, returns = self._gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
-        draw, batches, n_batches = self._minibatches(traj, advs, returns)
+        draw, batches, n_batches = self._minibatches(traj, advs, returns, mesh)
+        total = cfg.batch_size * max(1, cfg.update_fusion) if ranks else None
         perms = iter(draws["perms"]) if draws is not None else None
 
         def next_batches():
@@ -354,31 +409,40 @@ class PpoLearner:
             # SB3 semantics with reshuffle_epochs: a fresh permutation per epoch
             epoch = next_batches() if cfg.reshuffle_epochs else layout
             for i in range(n_batches):
-                self._minibatch_step(ts, {k: v[i] for k, v in epoch.items()})
+                batch = epoch[i] if ranks else {k: v[i] for k, v in epoch.items()}
+                self._minibatch_step(ts, batch, total)
         ts.update_count += 1
         if cfg.shuffle_groups > 1 and cfg.shuffle_group_rotate:
             # group-membership rotation: permute the per-env carried state
             # between iterations, so the next rollout's env-contiguous groups
-            # hold a fresh random subset of trajectories
+            # hold a fresh random subset of trajectories (on ranks the state
+            # is assembled once, permuted, and each rank keeps its rows)
             perm = draws["rotate"] if draws is not None else torch.randperm(
                 cfg.num_envs, generator=ts.generator, device=self.device)
 
-            def pick(x):
-                return x.index_select(0, perm)
+            def pick(tree):
+                if tree is None:
+                    return None
+                if ranks:
+                    tree = unshard_env_batch(tree, mesh)
+                return tree_map(lambda x: rows(x.index_select(0, perm)), tree)
 
-            ts.batch = BatchState(env=tree_map(pick, ts.batch.env), frames=pick(ts.batch.frames))
-            if ts.sde is not None:
-                ts.sde = SdeState(exploration_mat=pick(ts.sde.exploration_mat), step=pick(ts.sde.step))
+            rows = mesh.local if ranks else (lambda x: x)
+            ts.batch = pick(ts.batch)
+            ts.sde = pick(ts.sde)
         return ts
 
     def train_iteration(self, ts: PpoTrainState, draws=None):
         """One {rollout, GAE, epochs x minibatches} cycle. ``draws``: a dict
         with ``collect`` (:meth:`_collect`'s list) and :meth:`_update`'s
         ``perms`` and ``rotate``. Returns ``(ts, mean env reward)``, the mean
-        a 0-d device tensor."""
+        a 0-d device tensor over all envs (over the ranks' envs on ranks)."""
         ts, traj, last_value = self._collect(ts, None if draws is None else draws["collect"])
         ts = self._update(ts, traj, last_value, draws)
-        return ts, traj["raw_reward"].mean()
+        reward = traj["raw_reward"]
+        if ts.mesh is None or ts.mesh.logical:
+            return ts, reward.mean()
+        return ts, ts.mesh.all_sum([reward.sum()])[0] / (self.cfg.n_steps * self.cfg.num_envs)
 
     # --------------------------------------------------------------- eval
 

@@ -13,9 +13,17 @@ metrics, evals, the best policy, checkpoints and, with
 ``--video-every-blocks``, an episode video of the current policy (rendering
 needs pygame, and cv2 or imageio, on the host). ``--recipe robust`` or
 ``--population`` > 1 trains a seed population as one batched program and
-exports the selected winner (``train/population.py``). ``--shard`` and
-``--shard-local-replay`` wait for the data-parallel layer and are parser
-errors that say so.
+exports the selected winner (``train/population.py``).
+
+``--shard`` (and ``--shard-local-replay``, per-shard replay insert and
+sample) trains one run data-parallel over the ranks of a launcher:
+
+    torchrun --nproc-per-node=<gpus> -m usv_tpu_torch.train.run_sac \
+        --recipe at-scale --shard --shard-local-replay
+
+Each rank steps its share of the envs on its own card (NCCL), the learner is
+replicated and its gradients summed over the ranks; rank 0 alone writes the
+logdir. Without a launcher the mesh is one shard in this process.
 """
 
 from __future__ import annotations
@@ -84,6 +92,7 @@ def sac_config(args):
         compute_dtype="bfloat16" if args.bf16 else "float32",
         fused_updates=args.fused_updates,
         update_fusion=args.update_fusion,
+        shard_local_replay=args.shard_local_replay,
     )
 
 
@@ -165,11 +174,11 @@ def build_parser():
     p.add_argument("--eval-envs", type=int, default=16, help="deterministic-eval batch width")
     p.add_argument("--ignore-obstacles", action="store_true")
     p.add_argument("--shard", action="store_true",
-                   help="shard env batch + replay over all local devices (waits for the "
-                        "data-parallel layer)")
+                   help="shard env batch + replay over the ranks of the launcher "
+                        "(torchrun); the learner is replicated, its gradients summed")
     p.add_argument("--shard-local-replay", action="store_true",
-                   help="with --shard: per-shard replay insert/sample (waits for the "
-                        "data-parallel layer)")
+                   help="with --shard: per-shard replay insert/sample, so that the only "
+                        "steady-state collectives are the gradient sums")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 MLP trunks (parameters and Adam state stay float32)")
     p.add_argument("--fused-updates", action="store_true",
@@ -211,12 +220,29 @@ def main(argv=None):
     args._parser_defaults = {f: p.get_default(f) for f in vars(args)}
     if args.population > 1:
         if args.shard or args.shard_local_replay:
-            p.error("--population is incompatible with --shard (a population "
-                    "already fills the chip; shard single-seed runs instead)")
+            p.error("--population is incompatible with --shard (a population already "
+                    "fills the chip; the data-parallel layer shards single-seed runs)")
         return run_sac_population(args)
-    if args.shard or args.shard_local_replay:
-        p.error("--shard and --shard-local-replay need the data-parallel layer "
-                "(parallel/, the shard-local buffer), which is not ported yet")
+    if not (args.shard or args.shard_local_replay):
+        return train(args)
+    import torch.distributed as dist
+
+    from usv_tpu_torch.parallel.dist import initialize_distributed, shutdown_distributed
+
+    # from the launcher's environment, unless the caller brought a group up
+    created = not dist.is_initialized() and initialize_distributed(device=args.device)
+    try:
+        return train(args, sharded=True)
+    finally:
+        if created:
+            shutdown_distributed()
+
+
+def train(args, sharded: bool = False):
+    """The single-seed run of a resolved argument namespace; with
+    ``sharded``, over the mesh of the process group (or a one-shard mesh).
+    Returns ``(learner, train_state)``."""
+    import torch.distributed as dist
 
     from usv_tpu_torch.envs import make
     from usv_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
@@ -224,18 +250,35 @@ def main(argv=None):
     from usv_tpu_torch.train.policy import export_policy, in_run_eval_meta
     from usv_tpu_torch.train.sac import SacLearner
 
+    mesh, device = None, args.device
+    if sharded:
+        from usv_tpu_torch.parallel.dist import rank_device
+        from usv_tpu_torch.parallel.mesh import make_env_mesh
+
+        if dist.is_initialized():
+            device = rank_device()
+        mesh = make_env_mesh(device=device)
+    writer = mesh is None or mesh.logical or mesh.rank == 0  # rank 0 alone writes the logdir
     env_kwargs = {"ignore_obstacles": True} if args.ignore_obstacles else {}
-    handle = make(args.env, device=args.device, **env_kwargs)
+    handle = make(args.env, device=device, **env_kwargs)
     cfg = sac_config(args)
-    learner = SacLearner(handle, cfg)
+    learner = SacLearner(handle, cfg, mesh=mesh)
     ts = learner.init(seed=args.seed)
 
     if args.resume:
         # a light checkpoint leaves the fresh, empty buffer of ``ts`` in place
         ts, at_step = restore_checkpoint(f"{args.logdir}/ckpt", ts)
-        print(f"resumed from checkpoint at env step {at_step}", flush=True)
+        if writer:
+            print(f"resumed from checkpoint at env step {at_step}", flush=True)
+    if mesh is not None:
+        from usv_tpu_torch.parallel.sharded import shard_sac_train_state
 
-    logger = MetricLogger(args.logdir, config=vars(args))
+        ts = shard_sac_train_state(ts, mesh)
+        if writer:
+            print(f"sharded over {mesh}: {cfg.num_envs // mesh.size} envs and "
+                  f"{ts.buffer.capacity} replay rows a rank", flush=True)
+
+    logger = MetricLogger(args.logdir, config=vars(args)) if writer else None
     steps_per_block = args.rounds_per_block * cfg.train_freq * cfg.num_envs
     block = 0
     best_eval = float("-inf")
@@ -258,12 +301,14 @@ def main(argv=None):
             metrics.update(eval_metrics)
             if score > best_eval:
                 best_eval = score
-                export_policy(learner, ts, f"{args.logdir}/policy_best", extra_meta=in_run_eval_meta(
-                    args.env, args.best_metric, score, stats, learner.eval_seed(ts),
-                    args.eval_steps, args.eval_envs))
+                if writer:
+                    export_policy(learner, ts, f"{args.logdir}/policy_best",
+                                  extra_meta=in_run_eval_meta(
+                                      args.env, args.best_metric, score, stats,
+                                      learner.eval_seed(ts), args.eval_steps, args.eval_envs))
             if ts.buffer.size > 0:  # wandb.watch analog (needs data)
                 metrics.update(learner.watch(ts))
-        if args.video_every_blocks and block % args.video_every_blocks == 0:
+        if writer and args.video_every_blocks and block % args.video_every_blocks == 0:
             from usv_tpu_torch.utils.video import record_rollout_video
 
             _, vid_reward = record_rollout_video(
@@ -271,16 +316,19 @@ def main(argv=None):
                 n_steps=500, seed=block, frame_stack=cfg.frame_stack,
             )
             metrics["video_episode_reward"] = vid_reward
-        logger.log(env_steps, **metrics)
-        print({k: round(v, 3) if isinstance(v, float) else v for k, v in metrics.items()}, flush=True)
+        if writer:
+            logger.log(env_steps, **metrics)
+            print({k: round(v, 3) if isinstance(v, float) else v for k, v in metrics.items()},
+                  flush=True)
         if args.checkpoint_every_blocks and block % args.checkpoint_every_blocks == 0:
             save_checkpoint(f"{args.logdir}/ckpt", ts, env_steps,
                             include_buffer=not args.light_checkpoints)
         t0 = time.time()  # exclude eval/checkpoint from the next block's rate
     save_checkpoint(f"{args.logdir}/ckpt", ts, ts.env_steps * cfg.num_envs,
                     include_buffer=not args.light_checkpoints)
-    export_policy(learner, ts, f"{args.logdir}/policy")
-    logger.close()
+    if writer:
+        export_policy(learner, ts, f"{args.logdir}/policy")
+        logger.close()
     return learner, ts
 
 

@@ -33,6 +33,18 @@ S is; only the draws grow with S, because member ``i`` draws from its own
 generator, seeded ``seeds[i]``, exactly what the single-seed learner with
 that seed draws: member ``i`` is that learner.
 
+Data parallelism (``usv_tpu_torch/parallel``): a state sharded over a mesh
+(``shard_sac_train_state``) trains through the same calls. Every draw of a
+collect step (the gSDE normals, the warm-up actions, the actor's noise, the
+auto-reset's uniform block) is drawn at the GLOBAL width from the replicated
+generator, and a rank keeps its envs' rows, so rank ``k``'s envs see exactly
+what the one-process run gives envs ``[k*B/n, (k+1)*B/n)``. A rank's losses
+are its rows' share of the global means (sums over ``batch_size``), and its
+gradients are summed over the ranks before Adam. With shard-local replay
+(``cfg.shard_local_replay``, the learner given the mesh) each shard inserts
+and samples its own capacity block; in global mode every rank draws the
+one-process run's replay indices and evaluates the rows it owns.
+
 Randomness: one ``torch.Generator`` per run on the learner's device feeds the
 resets, the warm-up actions, the gSDE matrices, the replay indices and the
 update noise. Where the JAX learner splits a key, the collect and update
@@ -57,13 +69,16 @@ from usv_tpu_torch.envs.registry import EnvHandle
 from usv_tpu_torch.models.mlp import DoubleCritic, SquashedGaussianActor
 from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
 from usv_tpu_torch.models.stacked import Stacked, vmap_members
+from usv_tpu_torch.parallel.mesh import EnvMesh, per_shard
 from usv_tpu_torch.train.buffer import (
     ReplayBuffer,
     buffer_add_batch,
     buffer_add_many,
+    buffer_add_traj_local,
     buffer_init,
     buffer_init_many,
     buffer_sample,
+    buffer_sample_local,
     buffer_sample_many,
 )
 from usv_tpu_torch.train.common import (
@@ -83,6 +98,7 @@ from usv_tpu_torch.train.common import (
 from usv_tpu_torch.vector.batch import BatchedEnv, BatchState
 
 EVAL_TAG, WATCH_TAG = 7, 13  # JAX's fold_in(ts.key, 7) and fold_in(ts.key, 13)
+SAMPLE_TAG = 17  # the shard-local replay draws of an update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +138,10 @@ class SacConfig:
     compute_dtype: str = "float32"
     fused_updates: bool = False
     update_fusion: int = 1
-    # shard-local replay belongs to the data-parallel layer (Slice F), which
-    # is not ported: True raises
+    # shard-local replay: insert and sample the replay per mesh shard, so that
+    # the gradient sums are the only steady-state collectives. Needs the
+    # learner's mesh; num_envs, batch_size and the capacity must divide it.
+    # Sampling is stratified-uniform (batch_size/n rows a shard).
     shard_local_replay: bool = False
     # action bounds; None derives them from the env config
     action_low: Optional[Tuple[float, ...]] = None
@@ -149,6 +167,7 @@ class SacTrainState:
     env_steps: int = 0              # collect steps taken (each by all num_envs envs)
     grad_steps: int = 0             # updates made
     sde: Optional[SdeState] = None  # when cfg.use_sde
+    mesh: Optional[EnvMesh] = None  # set by shard_sac_train_state
 
 
 @dataclasses.dataclass
@@ -177,14 +196,23 @@ class SacPopulationState:
 class SacLearner:
     """Actor-learner bound to one env family on the handle's device."""
 
-    def __init__(self, handle: EnvHandle, config: SacConfig = SacConfig()):
+    def __init__(self, handle: EnvHandle, config: SacConfig = SacConfig(),
+                 mesh: Optional[EnvMesh] = None):
         if config.shard_local_replay:
-            raise NotImplementedError(
-                "shard_local_replay needs the data-parallel layer (Slice F: parallel/, "
-                "buffer_add_traj_local, buffer_sample_local), which usv_tpu_torch does not "
-                "port yet")
+            if mesh is None:
+                raise ValueError(
+                    "shard_local_replay=True needs the device mesh: "
+                    "SacLearner(handle, cfg, mesh=make_env_mesh())"
+                )
+            n = mesh.size
+            if config.num_envs % n or config.batch_size % n:
+                raise ValueError(
+                    f"num_envs ({config.num_envs}) and batch_size "
+                    f"({config.batch_size}) must divide the mesh size ({n})"
+                )
         self.handle = handle
         self.cfg = config
+        self.mesh = mesh
         self.device = handle.device
         env_cfg = handle.cfg
         self.obs_dim = env_cfg.obs_dim * max(1, config.frame_stack)
@@ -256,80 +284,157 @@ class SacLearner:
             actor=actor, critic=critic, target_critic=target, log_alpha=log_alpha,
             actor_opt=adam(actor.parameters(), lr), critic_opt=adam(critic.parameters(), lr),
             alpha_opt=adam([log_alpha], lr),
-            buffer=buffer_init(self.buffer_capacity, self.obs_dim, self.act_dim, device=self.device),
+            buffer=buffer_init(self.buffer_capacity, self.obs_dim, self.act_dim, device=self.device,
+                               blocks=self.mesh.size if cfg.shard_local_replay else 1),
             batch=batch, generator=generator, seed=int(seed), sde=sde,
         )
 
     # ----------------------------------------------------------- collection
 
-    def _policy_action(self, ts: SacTrainState, obs, random_phase: bool, draws: dict):
-        """Uniform in [low, high] during warm-up (``draws["uniform_actions"]``
-        are the actions themselves), else a squashed-Gaussian sample: gSDE's
-        exploration matrices, or per-step noise (``draws["noise"]``)."""
+    def mesh_of(self, ts: SacTrainState) -> Optional[EnvMesh]:
+        """The mesh ``ts`` trains on: its own (a sharded state), else the
+        learner's logical one (or none). A process-group mesh trains only a
+        state sharded over it."""
+        own = getattr(ts, "mesh", None)  # a population state has none
+        if own is not None:
+            if self.mesh is not None and self.mesh.size != own.size:
+                raise ValueError(f"a state sharded over {own} on a learner of {self.mesh}")
+            return own
+        if self.mesh is not None and not self.mesh.logical:
+            raise ValueError("a process-group mesh trains a sharded state: "
+                             "shard_sac_train_state(learner.init(seed), mesh)")
+        return self.mesh
+
+    def fill(self, ts: SacTrainState) -> int:
+        """The replay's global fill: a shard's or a rank's count times the
+        shards when ``size`` counts local rows."""
+        mesh = self.mesh_of(ts)
+        local = self.cfg.shard_local_replay or (mesh is not None and not mesh.logical)
+        return ts.buffer.size * (mesh.size if local else 1)
+
+    def _policy_action(self, ts: SacTrainState, obs, random_phase: bool, d: dict, rows):
+        """Uniform in [low, high] during warm-up (``d["uniform_actions"]`` are
+        the actions themselves), else a squashed-Gaussian sample: gSDE's
+        exploration matrices, or per-step noise (``d["noise"]``). ``rows``
+        keeps this process's rows of a global-width draw."""
+        B, dev, mesh = self.cfg.num_envs, self.device, self.mesh_of(ts)
         if random_phase:
-            actions = draws.get("uniform_actions")
+            actions = d.get("uniform_actions")
             if actions is None:
-                u = torch.rand((obs.shape[0], self.act_dim), generator=ts.generator, device=obs.device)
+                u = torch.rand((B, self.act_dim), generator=ts.generator, device=dev)
                 actions = u * (self._high - self._low) + self._low
-            return actions
+            return rows(actions)
         if self.cfg.use_sde:
-            return ts.actor.sample_sde(obs, ts.sde)
-        return ts.actor.sample(obs, generator=ts.generator, noise=draws.get("noise"))[0]
+            return per_shard(mesh, ts.actor.sample_sde, obs, ts.sde)
+        noise = d.get("noise")
+        if noise is None:
+            noise = torch.randn((B, self.act_dim), generator=ts.generator, device=dev)
+        return per_shard(mesh, lambda o, n: ts.actor.sample(o, noise=n)[0], obs, rows(noise))
 
     @torch.no_grad()
     def _env_cycle(self, ts: SacTrainState, draws=None):
         """``train_freq`` env steps on all envs, then ONE aligned buffer
-        insert of the ``(train_freq * num_envs)`` rows, step-major.
+        insert of the ``(train_freq * num_envs)`` rows, step-major (per shard
+        with shard-local replay).
 
         ``draws``: one dict per step, any of ``resample`` (the gSDE normals,
         drawn every step as in JAX), ``uniform_actions``, ``noise`` and
-        ``reset`` (the auto-reset's uniform block). Returns ``(ts, reward
-        sum)``, the sum a 0-d device tensor.
+        ``reset`` (the auto-reset's uniform block), all at the global width.
+        Returns ``(ts, reward sum)``, the sum a 0-d device tensor over this
+        process's envs.
         """
-        cfg = self.cfg
+        cfg, dev = self.cfg, self.device
         B = cfg.num_envs
+        mesh = self.mesh_of(ts)
+        rows = mesh.local if mesh is not None else (lambda x: x)
+        width = self.handle.n_uniform(self.handle.cfg)
         # threshold in collect-step units, as JAX (env_steps * num_envs could overflow)
         warmup_steps = -(-cfg.learning_starts // B)
-        rows = {name: [] for name in ReplayBuffer.FIELDS}
+        cols = {name: [] for name in ReplayBuffer.FIELDS}
         rewards = []
         for t in range(cfg.train_freq):
             d = draws[t] if draws is not None else {}
             frames = ts.batch.frames
-            obs = frames.reshape(B, -1)
+            obs = frames.reshape(frames.shape[0], -1)
             if cfg.use_sde:
-                ts.sde = maybe_resample(ts.sde, ts.generator, cfg.sde_sample_freq,
-                                        normals=d.get("resample"))
-            actions = self._policy_action(ts, obs, ts.env_steps < warmup_steps, d)
-            ts.batch, step = self.benv.step(ts.batch, actions, generator=ts.generator,
-                                            uniform=d.get("reset"))
+                normals = d.get("resample")
+                if normals is None:
+                    normals = torch.randn((B, *ts.sde.exploration_mat.shape[1:]),
+                                          generator=ts.generator, device=dev)
+                ts.sde = maybe_resample(ts.sde, None, cfg.sde_sample_freq, normals=rows(normals))
+            actions = self._policy_action(ts, obs, ts.env_steps < warmup_steps, d, rows)
+            reset = d.get("reset")
+            if reset is None:
+                reset = torch.rand((B, width), generator=ts.generator, dtype=torch.float32, device=dev)
+            ts.batch, step = self.benv.step(ts.batch, actions, uniform=rows(reset))
             # next_obs: the frame stack continued with the terminal observation,
             # not the reset one; done is terminated only (truncation bootstraps)
             terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
             for name, value in (("obs", obs), ("action", actions), ("reward", step.reward),
-                                ("next_obs", terminal.reshape(B, -1)),
+                                ("next_obs", terminal.reshape(obs.shape[0], -1)),
                                 ("done", step.terminated.to(torch.float32))):
-                rows[name].append(value)
+                cols[name].append(value)
             rewards.append(step.reward.sum())
             ts.env_steps += 1
-        buffer_add_batch(ts.buffer, *(torch.cat(rows[name]) for name in ReplayBuffer.FIELDS),
-                         aligned=True)
+        if cfg.shard_local_replay:
+            buffer_add_traj_local(ts.buffer, {k: torch.stack(v) for k, v in cols.items()}, mesh)
+        else:
+            buffer_add_batch(ts.buffer, *(torch.cat(cols[name]) for name in ReplayBuffer.FIELDS),
+                             aligned=True)
         return ts, torch.stack(rewards).sum()
 
     # -------------------------------------------------------------- updates
 
     def _update_draws(self, ts: SacTrainState, batch_size: int, generator) -> dict:
-        """The draws of one update: replay indices, the target's sample noise,
-        the actor's sample noise and the CAPS spatial noise."""
+        """The draws of one update: replay indices (in global mode: shard-local
+        replay draws its own, see :meth:`_sample`), the target's sample noise,
+        the actor's sample noise and the CAPS spatial noise, at the global
+        batch width."""
         dev = self.device
-        return dict(
-            idx=torch.randint(0, max(ts.buffer.size, 1), (batch_size,), generator=generator,
-                              device=dev),
+        d = {}
+        if not self.cfg.shard_local_replay:
+            d["idx"] = torch.randint(0, max(self.fill(ts), 1), (batch_size,), generator=generator,
+                                     device=dev)
+        d.update(
             noise_next=torch.randn((batch_size, self.act_dim), generator=generator, device=dev),
             noise_actor=torch.randn((batch_size, self.act_dim), generator=generator, device=dev),
             noise_spatial=torch.randn((batch_size, self.obs_dim), generator=generator, device=dev),
         )
+        return d
 
-    def _critic_loss(self, ts: SacTrainState, batch, noise_next):
+    def _sample(self, ts: SacTrainState, batch_size: int, d: dict, seed: int):
+        """This process's rows of the update's batch and of its noise, and the
+        row count of the global means (``None``: the rows are the whole batch,
+        so plain means).
+
+        Shard-local replay: each shard's ``batch_size/n`` rows from its block
+        (:func:`buffer_sample_local` with ``seed``), the noise rows at the
+        same batch positions (shard-major). Global replay on ranks: the
+        one-process run's indices, of which a rank evaluates those its envs
+        wrote (global row ``g`` is env ``g % B`` of step-row ``g // B``)."""
+        mesh = self.mesh_of(ts)
+        noise = {k: d[k] for k in ("noise_next", "noise_actor", "noise_spatial")}
+        ranks = mesh is not None and not mesh.logical
+        if self.cfg.shard_local_replay:
+            batch = buffer_sample_local(ts.buffer, batch_size, mesh, seed=seed, idx=d.get("idx"))
+            return batch, {k: mesh.local(v) for k, v in noise.items()}, batch_size if ranks else None
+        if not ranks:
+            return buffer_sample(ts.buffer, batch_size, idx=d["idx"]), noise, None
+        B = self.cfg.num_envs
+        lo, hi = mesh.bounds(B)
+        env = d["idx"] % B
+        mine = torch.nonzero((env >= lo) & (env < hi)).squeeze(1)  # waits for the device
+        local = (d["idx"] // B) * (hi - lo) + env - lo
+        batch = buffer_sample(ts.buffer, batch_size, idx=local.index_select(0, mine))
+        return batch, {k: v.index_select(0, mine) for k, v in noise.items()}, batch_size
+
+    @staticmethod
+    def _mean(x, total: Optional[int]):
+        """A row mean over the global batch: this process's share of it when
+        ``total`` (the global row count) is given."""
+        return x.mean() if total is None else x.sum() / total
+
+    def _critic_loss(self, ts: SacTrainState, batch, noise_next, total: Optional[int] = None):
         """Twin-Q regression on the soft target (pre-update actor, current
         alpha, target critic), computed without a graph."""
         cfg = self.cfg
@@ -340,9 +445,11 @@ class SacLearner:
             target_v = torch.minimum(q1_t, q2_t) - alpha * next_logp
             target_q = batch["reward"] + cfg.gamma * (1.0 - batch["done"]) * target_v
         q1, q2 = ts.critic(batch["obs"], batch["action"])
-        return 0.5 * (torch.square(q1 - target_q).mean() + torch.square(q2 - target_q).mean())
+        return 0.5 * (self._mean(torch.square(q1 - target_q), total)
+                      + self._mean(torch.square(q2 - target_q), total))
 
-    def _actor_loss(self, ts: SacTrainState, batch, noise_actor, noise_spatial):
+    def _actor_loss(self, ts: SacTrainState, batch, noise_actor, noise_spatial,
+                    total: Optional[int] = None):
         """-> (loss, (mean log-prob, SAC loss, CAPS temporal, CAPS spatial)).
 
         The sample's mean action is ``deterministic(obs)`` (the same
@@ -352,37 +459,50 @@ class SacLearner:
         action, logp, mu_s = ts.actor.sample(batch["obs"], noise=noise_actor)
         q1, q2 = ts.critic(batch["obs"], action)
         alpha = torch.exp(ts.log_alpha).detach()
-        sac_loss = (alpha * logp - torch.minimum(q1, q2)).mean()
+        sac_loss = self._mean(alpha * logp - torch.minimum(q1, q2), total)
         mu_next = ts.actor.deterministic(batch["next_obs"])
         mu_noisy = ts.actor.deterministic(batch["obs"] + cfg.eps_s * noise_spatial)
-        caps_t = torch.square(mu_s - mu_next).sum(-1).mean()
-        caps_s = torch.square(mu_s - mu_noisy).sum(-1).mean()
+        caps_t = self._mean(torch.square(mu_s - mu_next).sum(-1), total)
+        caps_s = self._mean(torch.square(mu_s - mu_noisy).sum(-1), total)
         loss = sac_loss + cfg.lambda_t * caps_t + cfg.lambda_s * caps_s
-        return loss, (logp.mean(), sac_loss, caps_t, caps_s)
+        return loss, (self._mean(logp, total), sac_loss, caps_t, caps_s)
 
-    def _update_once(self, ts: SacTrainState, batch_size: Optional[int] = None, draws=None):
+    def _update_once(self, ts: SacTrainState, batch_size: Optional[int] = None, draws=None,
+                     trace: Optional[dict] = None):
         """One update: the critic steps first; the actor loss then sees the
         UPDATED critic; the temperature steps on the actor loss's mean
         log-prob; the target critic blends in the new critic. ``draws``
         (:meth:`_update_draws`'s dict) replaces the draws from the training
-        generator."""
+        generator. On ranks the gradients and the mean log-prob are summed
+        over the ranks (three all-reduces); ``trace``, a dict, receives those
+        summed gradients."""
         cfg = self.cfg
         batch_size = batch_size or cfg.batch_size
         d = draws if draws is not None else self._update_draws(ts, batch_size, ts.generator)
-        batch = buffer_sample(ts.buffer, batch_size, idx=d["idx"])
+        batch, noise, total = self._sample(ts, batch_size, d,
+                                           derived_seed(ts.seed, ts.grad_steps, SAMPLE_TAG))
+        mesh = self.mesh_of(ts)
+        all_sum = mesh.all_sum if mesh is not None else list
         lr = self.lr_at(ts.grad_steps)
 
         critic_params = list(ts.critic.parameters())
-        grads = torch.autograd.grad(self._critic_loss(ts, batch, d["noise_next"]), critic_params)
+        grads = all_sum(torch.autograd.grad(self._critic_loss(ts, batch, noise["noise_next"], total),
+                                            critic_params))
         step_with(ts.critic_opt, critic_params, grads, lr)
+        if trace is not None:
+            trace["critic"] = grads
 
         actor_params = list(ts.actor.parameters())
-        loss, (mean_logp, _, _, _) = self._actor_loss(ts, batch, d["noise_actor"], d["noise_spatial"])
-        grads = torch.autograd.grad(loss, actor_params)
+        loss, (mean_logp, _, _, _) = self._actor_loss(ts, batch, noise["noise_actor"],
+                                                      noise["noise_spatial"], total)
+        grads = all_sum(torch.autograd.grad(loss, actor_params))
         step_with(ts.actor_opt, actor_params, grads, lr)
+        mean_logp, = all_sum([mean_logp.detach()])
+        if trace is not None:
+            trace.update(actor=grads, mean_logp=mean_logp)
 
         # temperature: the gradient of -log_alpha * (mean_logp + target_entropy)
-        step_with(ts.alpha_opt, [ts.log_alpha], [-(mean_logp.detach() + self.target_entropy)], lr)
+        step_with(ts.alpha_opt, [ts.log_alpha], [-(mean_logp + self.target_entropy)], lr)
 
         with torch.no_grad():
             target = list(ts.target_critic.parameters())
@@ -398,20 +518,26 @@ class SacLearner:
 
     def train_rounds(self, ts: SacTrainState, n_rounds: int):
         """``n_rounds`` x {train_freq env steps + gradient_steps updates}.
-        Returns ``(state, summed reward)``, the sum a 0-d device tensor.
+        Returns ``(state, summed reward)``, the sum a 0-d device tensor over
+        all envs (summed over the ranks).
 
         The warm-up gate is on the BUFFER FILL (a host integer), not the
         env-step counter: after a light-checkpoint resume (an empty buffer, a
         restored counter) only the fill gate re-warms properly."""
         cfg = self.cfg
+        mesh = self.mesh_of(ts)
+        if cfg.shard_local_replay and ts.buffer.blocks != mesh.size:
+            raise ValueError(f"a replay of {ts.buffer.blocks} shard blocks on a mesh of "
+                             f"{mesh.size}: re-lay it first (buffer_reshard_local)")
         rewards = []
         for _ in range(n_rounds):
             ts, reward_sum = self._env_cycle(ts)
             rewards.append(reward_sum)
-            if ts.buffer.size >= min(cfg.learning_starts, cfg.buffer_size):
+            if self.fill(ts) >= min(cfg.learning_starts, cfg.buffer_size):
                 for _ in range(self.updates_per_round()):
                     self._update_once(ts, batch_size=self._fusion * cfg.batch_size)
-        return ts, torch.stack(rewards).sum()
+        total = torch.stack(rewards).sum()
+        return ts, (mesh.all_sum([total])[0] if mesh is not None else total)
 
     # ---------------------------------------------------------- diagnostics
 
@@ -421,27 +547,30 @@ class SacLearner:
         actor/critic parameters and of their gradients on one diagnostic
         replay batch, the loss terms, the temperature and the sampled-policy
         entropy. Steps nothing and draws from its own generator; only
-        meaningful once the buffer holds data. One read-back."""
-        g = new_generator(derived_seed(ts.seed, ts.env_steps, ts.grad_steps, WATCH_TAG), self.device)
-        d = self._update_draws(ts, self.cfg.batch_size, g)
-        batch = buffer_sample(ts.buffer, self.cfg.batch_size, idx=d["idx"])
+        meaningful once the buffer holds data. One read-back (and on ranks
+        two all-reduces: the gradients, then the loss terms)."""
+        seed = derived_seed(ts.seed, ts.env_steps, ts.grad_steps, WATCH_TAG)
+        d = self._update_draws(ts, self.cfg.batch_size, new_generator(seed, self.device))
+        batch, noise, total = self._sample(ts, self.cfg.batch_size, d, seed)
+        mesh = self.mesh_of(ts)
+        all_sum = mesh.all_sum if mesh is not None else list
         critic_params, actor_params = list(ts.critic.parameters()), list(ts.actor.parameters())
-        critic_loss = self._critic_loss(ts, batch, d["noise_next"])
+        critic_loss = self._critic_loss(ts, batch, noise["noise_next"], total)
         critic_grads = torch.autograd.grad(critic_loss, critic_params)
         actor_loss, (mean_logp, sac_loss, caps_t, caps_s) = self._actor_loss(
-            ts, batch, d["noise_actor"], d["noise_spatial"])
+            ts, batch, noise["noise_actor"], noise["noise_spatial"], total)
         actor_grads = torch.autograd.grad(actor_loss, actor_params)
+        grads = all_sum(list(critic_grads) + list(actor_grads))
+        critic_grads, actor_grads = grads[:len(critic_params)], grads[len(critic_params):]
+        losses = dict(critic_loss=critic_loss, actor_loss=actor_loss, sac_actor_loss=sac_loss,
+                      caps_temporal=caps_t, caps_spatial=caps_s, policy_entropy=-mean_logp)
+        losses = dict(zip(losses, all_sum([v.detach() for v in losses.values()])))
         values = dict(
             actor_param_norm=global_norm(actor_params),
             critic_param_norm=global_norm(critic_params),
             actor_grad_norm=global_norm(actor_grads),
             critic_grad_norm=global_norm(critic_grads),
-            critic_loss=critic_loss,
-            actor_loss=actor_loss,
-            sac_actor_loss=sac_loss,
-            caps_temporal=caps_t,
-            caps_spatial=caps_s,
-            policy_entropy=-mean_logp,
+            **losses,
             alpha=torch.exp(ts.log_alpha),
         )
         host = torch.stack([v.detach().float() for v in values.values()]).tolist()
