@@ -11,7 +11,8 @@ recipes' widths — through the entry points a user calls (``make``,
 ``BatchedEnv``, ``rollout``, ``throughput``, ``save_policy``,
 ``load_policy``, ``batch_policy_metrics``, ``run_sac.main``,
 ``run_ppo.main``, the gym adapters and ``UsvVectorEnv``; ``run_sac.main --shard``
-in launched ranks), after building the ray-cast
+in launched ranks; ``rollout``/``throughput`` with a policy, ``collect=True``
+and ``envs.register``), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -113,9 +114,9 @@ version on the card. Phases, each of which exits non-zero on failure:
     beside its plain version's and its bound (the bytes, or the operations
     on the pairs this data needs, counted on the card), at the shapes the
     system launches on live states (the three env paths', the two
-    learners', the two populations' and the gym surface's), and with
-    ``n_acc`` 1, 2 and 4, with no slot valid and for an empty kernel of the
-    same grid;
+    learners', the two populations' and the gym surface's; phases 20 and
+    21 add rank 0's and the policy rollout's), and with ``n_acc`` 1, 2 and
+    4, with no slot valid and for an empty kernel of the same grid;
 20. data parallel (``usv_tpu_torch.parallel``): ``run_sac.main --recipe
     at-scale --shard --shard-local-replay`` on ``usv-simple`` in a launched
     rank, so that its process group is NCCL at world size 1 (2 rounds; one
@@ -133,7 +134,24 @@ version on the card. Phases, each of which exits non-zero on failure:
     (the reward at rel 1e-4, the parameters within 5e-3), the kernel
     against its plain version on rank 0's live states (B=512 R=128 K=32,
     B=128 R=16 K=16, timed in the ``kernels`` line), and
-    ``dryrun_multichip(2, backend="gloo")``.
+    ``dryrun_multichip(2, backend="gloo")``;
+21. the policy rollout (``rollout``/``throughput`` with ``policy_fn``, and
+    ``collect=True``) on ``usv-simple`` at 4096 envs, 256 steps a run:
+    ``policy_fn=None`` and a policy returning zeros equal bit for bit with
+    one launch a step; a uniform policy drawing from its generator, and a
+    143-400-300-2 gSDE SAC actor (weights from a numpy seed through the
+    flax-layout converter) deterministic and sampled as the at-scale collect
+    samples, with no host wait in a run (sync debug mode), each form's rate
+    beside the zero-action rate in turns; ``collect=True`` (the trajectory's
+    bytes, the peak memory within 1.1 x the zero-action run's peak plus the
+    trajectory, the run's time beside the plain run's); the deterministic
+    actor's collected trajectory on the card against the CPU fed the card's
+    draws (64 envs x 32 steps: obs and reward at ATOL off the tangency rays,
+    done equal); the kernel against its plain version on the sampled
+    actor's live state (B=4096 R=128 K=32, timed in the ``kernels`` line);
+    an id registered through ``envs.register`` (``usv-simple``'s functions,
+    ``max_episode_steps=100``) through ``rollout`` and ``throughput``, bit for
+    bit against ``make("usv-simple", max_episode_steps=100)``.
 
 Every phase heading prints the seconds since the script started.
 
@@ -1663,7 +1681,8 @@ def adapter_card_vs_cpu(rc, name, kwargs, sensor_from, per_reset, per_step, opti
 
 def sync_count(fn, calls):
     """Host waits for the device per call of ``fn`` (CUDA's synchronising
-    calls, as torch's sync debug mode reports them)."""
+    calls, as torch's sync debug mode reports them; the mode's own notice
+    that it is a prototype, given once a process, is not one)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -1673,7 +1692,7 @@ def sync_count(fn, calls):
                 fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught) / calls
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught) / calls
 
 
 def adapter_step_ms(env, steps, action):
@@ -2165,6 +2184,265 @@ def data_parallel(device, card, time_shape):
     return record, err, rows
 
 
+POLICY_STEPS = 256  # the policy rollout at 4096 envs: steps per run
+POLICY_SYNC_STEPS = 32  # steps of each policy's run under the sync check
+REGISTERED_STEPS = 128  # the registered id's runs: past its truncation at step 100
+CARD_CPU_ENVS, CARD_CPU_STEPS = 64, 32  # the policy rollout, card against CPU
+
+
+def tree_leaves(tree):
+    """The tensors of a state dataclass, fields in order, nested ones walked."""
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree) for x in tree_leaves(getattr(tree, f.name))]
+    return [] if tree is None else [tree]
+
+
+def trees_equal(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def run_ms(fn):
+    """Wall ms of ``fn`` between device synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@torch.no_grad()
+def policy_rollout(device, card, rc, time_shape):
+    """Phase 21: ``rollout``/``throughput`` with a policy in the loop on
+    ``usv-simple`` at 4096 envs. The two zero-action forms (``policy_fn=None``
+    and a policy returning zeros) equal bit for bit; a uniform policy, and a
+    SAC actor at the at-scale widths on the raw obs (143-400-300-2, gSDE,
+    weights from a numpy seed through the flax-layout converter) run
+    deterministic and sampled as the at-scale collect samples, each timed
+    beside the zero-action run in turns, with no host wait in a run;
+    ``collect=True`` at 4096 x 256 within its memory bound; the collected
+    trajectory on the card against the CPU fed the card's draws; the kernel
+    against its plain version on the live state and timed there; a
+    registered id against ``make("usv-simple", max_episode_steps=100)``.
+    Returns the record's ``policy_rollout`` key, the largest kernel-vs-plain
+    difference and the kernel row."""
+    import functools
+
+    from usv_tpu_torch import convert
+    from usv_tpu_torch.envs import make, register, simple
+    from usv_tpu_torch.models import SquashedGaussianActor
+    from usv_tpu_torch.models.sde import init_sde, maybe_resample
+    from usv_tpu_torch.train.sac import SacConfig
+    from usv_tpu_torch.vector import BatchedEnv, rollout, throughput
+
+    handle = make("usv-simple")
+    cfg, act_dim = handle.cfg, handle.cfg.action_dim
+    B, T = NUM_ENVS, POLICY_STEPS
+    out = {"num_envs": B, "steps_per_run": T}
+
+    layout = {**mlp_layout("params/MLP_0", (cfg.obs_dim, 400, 300)),
+              "params/mean/kernel": (300, act_dim), "params/mean/bias": (act_dim,),
+              "params/log_std_sde": ((300, act_dim), -3.0)}
+    arrays = seeded_flax_params(np.random.default_rng(7), layout)
+
+    def build_actor(dev):
+        actor = SquashedGaussianActor(cfg.obs_dim, act_dim, (400, 300), log_std_init=-3.0,
+                                      action_low=cfg.action_low, action_high=cfg.action_high,
+                                      use_sde=True)
+        actor.load_state_dict(convert.state_dict_from_flax(arrays), strict=True)
+        return actor.to(dev).eval()
+
+    actor = build_actor(device)
+
+    def zero_fn(obs, g):
+        return torch.zeros((obs.shape[0], act_dim), device=obs.device)
+
+    def uniform_fn(obs, g):
+        return torch.rand((obs.shape[0], act_dim), generator=g, device=obs.device) * 2 - 1
+
+    def det_fn(obs, g):
+        return actor.deterministic(obs)
+
+    sde = {}
+
+    def sampled_fn(obs, g):
+        # the at-scale collect: an exploration matrix per env from the
+        # policy's generator, normals drawn every step, resampled every
+        # sde_sample_freq steps; a new generator is a new rollout
+        if sde.get("g") is not g:
+            sde.update(g=g, state=init_sde(g, 300, act_dim, (obs.shape[0],), obs.device))
+        normals = torch.randn(sde["state"].exploration_mat.shape, generator=g, device=obs.device)
+        sde["state"] = maybe_resample(sde["state"], None, SacConfig.sde_sample_freq, normals=normals)
+        return actor.sample_sde(obs, sde["state"])
+
+    policies = {"none": None, "zero_fn": zero_fn, "uniform": uniform_fn, "deterministic": det_fn,
+                "sampled": sampled_fn}
+    print(f"  SAC actor {cfg.obs_dim}-400-300-{act_dim}, gSDE (resampled every "
+          f"{SacConfig.sde_sample_freq} steps), {sum(p.numel() for p in actor.parameters())} "
+          "parameters from a numpy seed, through the flax-layout converter", flush=True)
+
+    # (1) the two zero-action forms, one seed: equal bit for bit, one launch a step
+    runs = {}
+    for name in ("none", "zero_fn"):
+        rc.counter.launches = 0
+        runs[name] = rollout(handle, B, T, seed=3, policy_fn=policies[name])
+        torch.cuda.synchronize()
+        check(rc.counter.launches == T, f"zero-action form {name}: {rc.counter.launches} launches "
+                                        f"for {T} steps")
+    (s0, o0, r0, d0), (s1, o1, r1, d1) = runs["none"], runs["zero_fn"]
+    check(trees_equal(s0, s1) and torch.equal(o0, o1) and torch.equal(r0, r1) and torch.equal(d0, d1),
+          "policy_fn=None and a zero policy differ")
+    print(f"  zero actions: policy_fn=None and a policy returning zeros equal bit for bit (final "
+          f"state, obs, reward sum {float(r0):.6g}, {int(d0)} episode ends), {T} launches each",
+          flush=True)
+    del runs, s0, s1, o0, o1
+
+    # (2) no host wait in a run of any policy, one launch a step
+    waits, live = {}, None
+    for name in ("none", "uniform", "deterministic", "sampled"):
+        rc.counter.launches = 0
+        box = []
+        waits[name] = sync_count(lambda: box.append(rollout(handle, B, POLICY_SYNC_STEPS, seed=9,
+                                                            policy_fn=policies[name])), 1)
+        torch.cuda.synchronize()
+        check(waits[name] == 0, f"{name} policy rollout: {waits[name]} host waits")
+        check(rc.counter.launches == POLICY_SYNC_STEPS,
+              f"{name} policy rollout: {rc.counter.launches} launches for {POLICY_SYNC_STEPS} steps")
+        state, obs, reward_sum, _ = box[0]
+        check(bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward_sum)),
+              f"{name} policy rollout: non-finite obs or reward")
+        live = state
+    print(f"  host waits in a {POLICY_SYNC_STEPS}-step run, its reset included (sync debug mode): "
+          f"{waits}; one launch a step", flush=True)
+    out["host_waits_per_run"] = waits
+
+    # (3) the rates, in turns: each form's throughput (a warm-up run and a
+    # timed run of T steps), forward then backward
+    order = list(policies)
+    rates = {name: [] for name in order}
+    for name in order + order[::-1]:
+        rc.counter.launches = 0
+        res = throughput(handle, B, n_steps=T, repeats=1, policy_fn=policies[name])
+        check(rc.counter.launches == 2 * T, f"throughput {name}: {rc.counter.launches} launches "
+                                            f"for {2 * T} steps")
+        rates[name].append(res["steps_per_second"])
+    best = {name: max(v) for name, v in rates.items()}
+    ratios = {name: best[name] / best["none"] for name in order}
+    for name in order:
+        print(f"  throughput, {name}: {rates[name][0]:.1f} and {rates[name][1]:.1f} env-steps/s "
+              f"({B} envs x {T} steps), the better {ratios[name]:.3f} of "
+              "policy_fn=None's", flush=True)
+    out.update(env_steps_per_s=rates, ratio_to_zero_actions=ratios)
+
+    # (4) collection at 4096 x 256: the trajectory, its bytes, the peak memory
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plain = rollout(handle, B, T, seed=5)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = rollout(handle, B, T, seed=5, collect=True)
+    torch.cuda.synchronize()
+    collect_peak = torch.cuda.max_memory_allocated()
+    obs_t, reward_t, done_t = got[4]
+    traj_bytes = sum(x.numel() * x.element_size() for x in got[4])
+    check([tuple(x.shape) for x in got[4]] == [(T, B, cfg.obs_dim), (T, B), (T, B)]
+          and [x.dtype for x in got[4]] == [torch.float32, torch.float32, torch.bool],
+          f"collected shapes {[tuple(x.shape) for x in got[4]]}")
+    check(trees_equal(plain[0], got[0]) and torch.equal(plain[1], got[1])
+          and torch.equal(plain[2], got[2]) and torch.equal(plain[3], got[3]),
+          "collect=True changed the rollout")
+    check(torch.equal(obs_t[-1], got[1]) and int(done_t.sum()) == int(got[3])
+          and math.isclose(float(reward_t.double().sum()), float(got[2]), rel_tol=1e-4),
+          "the trajectory disagrees with the rollout's aggregates")
+    check(bool(torch.isfinite(obs_t).all()), "non-finite collected obs")
+    bound = 1.1 * (plain_peak + traj_bytes)
+    check(collect_peak <= bound, f"collect peak {collect_peak} B above {bound:.0f} B")
+    del got, plain, obs_t, reward_t, done_t
+    ms = {"plain": [], "collect": []}
+    for name in ("plain", "collect", "collect", "plain") * 2:
+        ms[name].append(run_ms(lambda: rollout(handle, B, T, seed=6, collect=name == "collect")))
+    collect_cost = min(ms["collect"]) / min(ms["plain"])
+    print(f"  collect=True, {T} x {B}: trajectory {traj_bytes} bytes (obs {T * B * cfg.obs_dim * 4}); "
+          f"max_memory_allocated {collect_peak} B against {plain_peak} B without collection (bound "
+          f"{bound:.0f} B); run {min(ms['collect']):.1f} ms against {min(ms['plain']):.1f} ms "
+          f"(x{collect_cost:.3f}, best of 4 in turns)", flush=True)
+    out.update(trajectory_bytes=traj_bytes, collect_peak_bytes=collect_peak,
+               zero_action_peak_bytes=plain_peak, collect_ms=ms, collect_cost=collect_cost)
+
+    # (5) card against CPU: the deterministic actor, collect=True; the CPU
+    # replays the card's reset and auto-reset draws through uniform blocks
+    b, t_steps, seed = CARD_CPU_ENVS, CARD_CPU_STEPS, 11
+    h_card = make("usv-simple", max_episode_steps=8)
+    *_, (k_obs, k_rew, k_done) = rollout(h_card, b, t_steps, seed=seed, policy_fn=det_fn,
+                                         collect=True)
+    n = h_card.n_uniform(h_card.cfg)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    blocks = [torch.rand((b, n), generator=g, dtype=torch.float32, device=device).cpu()
+              for _ in range(t_steps + 1)]
+    cpu_actor = build_actor("cpu")
+    benv = BatchedEnv(make("usv-simple", device="cpu", max_episode_steps=8), b)
+    state, obs = benv.reset(0, uniform=blocks[0])
+    k_obs, k_rew, k_done = k_obs.cpu(), k_rew.cpu(), k_done.cpu()
+    held = torch.ones(b, dtype=torch.bool)  # envs whose inputs still agree
+    worst, flips, compared, sensor_from = 0.0, 0, 0, 15
+    for t in range(t_steps):
+        state, ts = benv.step(state, cpu_actor.deterministic(obs), uniform=blocks[t + 1])
+        obs = ts.obs
+        diff = (k_obs[t] - obs).abs()
+        ray_off = (diff[:, sensor_from:] > ATOL).any(1)
+        err = float(diff[held, :sensor_from].max())
+        rew_err = float((k_rew[t] - ts.reward).abs()[held & ~ray_off].max())
+        worst = max(worst, err, rew_err)
+        check(err <= ATOL and rew_err <= ATOL, f"card vs CPU step {t}: obs {err}, reward {rew_err}")
+        check(torch.equal(k_done[t][held], ts.done[held]), f"card vs CPU step {t}: done differs")
+        compared += int(held.sum())
+        flips += int((diff[held, sensor_from:] > ATOL).sum())
+        # a flipped ray (a grazing tangency) changes the env's next action
+        held &= ~ray_off
+    rays = compared * (cfg.obs_dim - sensor_from)
+    check(flips * 10_000 <= rays, f"card vs CPU: {flips} of {rays} rays differ")
+    check(int(k_done.sum()) >= 2 * b, f"card vs CPU: only {int(k_done.sum())} episode ends")
+    print(f"  card vs CPU, deterministic actor, collect=True, {b} envs x {t_steps} steps "
+          f"({int(k_done.sum())} episode ends): max non-sensor obs and reward difference {worst:.3g} "
+          f"(atol {ATOL}), done equal; {flips} of {rays} rays differ by > {ATOL}; {compared} "
+          "env-steps compared", flush=True)
+    out.update(card_vs_cpu_err=worst, card_vs_cpu_ray_flips=flips, card_vs_cpu_env_steps=compared)
+
+    # (6) the kernel on the sampled actor's live state
+    live_err = check_kernel_on_live_state("usv-simple", cfg, live)
+    live_args, live_bd = live_scene("usv-simple", cfg, live)
+    row = time_shape("policy rollout, the sampled actor's last state,", live_args, live_bd, live_args[3])
+    row["launches_per_run"] = T
+    out["kernel"] = row
+
+    # (7) a registered id: usv-simple's functions with max_episode_steps=100
+    new_id = "smoke/usv-simple-100"
+    register(new_id, functools.partial(simple.SimpleEnvConfig, max_episode_steps=100),
+             simple.reset_from_uniform, simple.n_uniform, simple.step, simple.reset_obs,
+             reset_info=simple.reset_info)
+    reg = {}
+    for env_id, overrides in ((new_id, {}), ("usv-simple", {"max_episode_steps": 100})):
+        h = make(env_id, **overrides)
+        rc.counter.launches = 0
+        reg[env_id] = (rollout(h, B, REGISTERED_STEPS, seed=4, policy_fn=uniform_fn),
+                       rc.counter.launches)
+    (a, la), (c, lc) = reg.values()
+    check(la == lc == REGISTERED_STEPS, f"registered id: {la} and {lc} launches")
+    check(trees_equal(a[0], c[0]) and all(torch.equal(x, y) for x, y in zip(a[1:], c[1:])),
+          f"{new_id} differs from usv-simple with max_episode_steps=100")
+    check(int(a[3]) >= B, f"{new_id}: only {int(a[3])} episode ends in {REGISTERED_STEPS} steps")
+    rc.counter.launches = 0
+    res = throughput(make(new_id), B, n_steps=REGISTERED_STEPS, repeats=1)
+    check(rc.counter.launches == 2 * REGISTERED_STEPS, f"throughput {new_id}: {rc.counter.launches} launches")
+    print(f"  registered {new_id}: equal bit for bit to make('usv-simple', max_episode_steps=100) "
+          f"over {REGISTERED_STEPS} steps ({int(a[3])} episode ends, {la} launches each); throughput "
+          f"{res['steps_per_second']:.1f} env-steps/s", flush=True)
+    out.update(registered_id=new_id, registered_env_steps_per_s=res["steps_per_second"])
+    return {"policy_rollout": out}, live_err, row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2377,6 +2655,11 @@ def main():
     max_err = max(max_err, live_err)
     other_rows += dp_rows
 
+    phase("policy rollout: rollout/throughput with a policy, collect=True, a registered id")
+    policy_record, live_err, policy_row = policy_rollout(device, card, rc, time_shape)
+    max_err = max(max_err, live_err)
+    other_rows.append(policy_row)
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -2419,6 +2702,7 @@ def main():
         **trace_record,
         **gym_record,
         **dp_record,
+        **policy_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

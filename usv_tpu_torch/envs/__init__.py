@@ -2,10 +2,10 @@
 ``usv-asmc-simple``, ``usv-aitsmc-simple``, ``usv-asmc-ca-v0``,
 ``usv-curved-aitsmc`` and the legacy ``usv-asmc-v0``, ``usv-pid-v0``,
 ``usv-asmc-ye-int-v0``), the auto-reset (full width and pooled) and the
-registry."""
+registry (``make``, ``register``, ``registered_ids``)."""
 
 from usv_tpu_torch.envs.types import TimeStep
-from usv_tpu_torch.envs.registry import EnvHandle, make, registered_ids
+from usv_tpu_torch.envs.registry import EnvHandle, make, register, registered_ids
 from usv_tpu_torch.envs.autoreset import (
     default_reset_pool,
     make_autoreset_step,

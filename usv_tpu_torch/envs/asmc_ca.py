@@ -45,7 +45,7 @@ from usv_tpu_torch.control.asmc import (
 from usv_tpu_torch.core.angles import wrap_angle
 from usv_tpu_torch.core.geometry import denormalize_val
 from usv_tpu_torch.envs.simple import _const, box_muller
-from usv_tpu_torch.envs.types import TimeStep
+from usv_tpu_torch.envs.types import TimeStep, reset_from_generator
 from usv_tpu_torch.ops.dispatch import sensor_raycast
 from usv_tpu_torch.physics.dynamics import DynamicsState
 from usv_tpu_torch.physics.params import VehicleParams
@@ -200,11 +200,7 @@ def reset_from_uniform(cfg: CaEnvConfig, u: torch.Tensor) -> CaEnvState:
     return bootstrap(cfg, build_core(cfg, u))
 
 
-def reset(cfg: CaEnvConfig, generator: torch.Generator, num_envs: int, device) -> CaEnvState:
-    """``num_envs`` fresh envs from one ``torch.rand`` block drawn from ``generator``."""
-    u = torch.rand((num_envs, n_uniform(cfg)), generator=generator,
-                   dtype=torch.float32, device=device)
-    return reset_from_uniform(cfg, u)
+reset = reset_from_generator(reset_from_uniform, n_uniform)
 
 
 def reset_obs(cfg: CaEnvConfig, state: CaEnvState):

@@ -47,7 +47,7 @@ from usv_tpu_torch.control.aitsmc import (
 )
 from usv_tpu_torch.core.angles import wrap_angle
 from usv_tpu_torch.envs.simple import box_muller
-from usv_tpu_torch.envs.types import TimeStep
+from usv_tpu_torch.envs.types import TimeStep, reset_from_generator
 from usv_tpu_torch.ops.dispatch import sensor_raycast
 from usv_tpu_torch.physics.dynamics import DynamicsState
 from usv_tpu_torch.physics.params import VehicleParams
@@ -205,12 +205,7 @@ def reset_from_uniform(cfg: CurvedEnvConfig, u: torch.Tensor) -> CurvedEnvState:
                             n1[:, W:], n_obs)
 
 
-def reset(cfg: CurvedEnvConfig, generator: torch.Generator, num_envs: int,
-          device) -> CurvedEnvState:
-    """``num_envs`` fresh envs from one ``torch.rand`` block drawn from ``generator``."""
-    u = torch.rand((num_envs, n_uniform(cfg)), generator=generator,
-                   dtype=torch.float32, device=device)
-    return reset_from_uniform(cfg, u)
+reset = reset_from_generator(reset_from_uniform, n_uniform)
 
 
 def _lookahead_target(cfg: CurvedEnvConfig, state: CurvedEnvState):

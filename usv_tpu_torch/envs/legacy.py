@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from usv_tpu_torch.core.angles import wrap_angle_once
-from usv_tpu_torch.envs.types import TimeStep
+from usv_tpu_torch.envs.types import TimeStep, reset_from_generator
 from usv_tpu_torch.physics.dynamics import (
     DynamicsState,
     dynamics_step,
@@ -338,15 +338,6 @@ def _legacy_step(cfg, state: LegacyState, action, law, done_fn, ye_int_mode=Fals
     )
 
 
-def _reset_from_generator(reset_from_uniform_fn):
-    def reset(cfg, generator: torch.Generator, num_envs: int, device) -> LegacyState:
-        """``num_envs`` fresh envs from one ``torch.rand`` block drawn from ``generator``."""
-        u = torch.rand((num_envs, 7), generator=generator, dtype=torch.float32, device=device)
-        return reset_from_uniform_fn(cfg, u)
-
-    return reset
-
-
 def _state_vec(cfg, state: LegacyState):
     return state.state_vec
 
@@ -366,7 +357,7 @@ def step_asmc(cfg: LegacyAsmcConfig, state: LegacyState, action):
     return _legacy_step(cfg, state, action, _asmc_law, _done_asmc)
 
 
-reset_asmc = _reset_from_generator(reset_from_uniform_asmc)
+reset_asmc = reset_from_generator(reset_from_uniform_asmc, n_uniform)
 reset_obs_asmc = _state_vec
 
 
@@ -387,7 +378,7 @@ def step_pid(cfg: LegacyPidConfig, state: LegacyState, action):
     return _legacy_step(cfg, state, action, _pid_law, _done_min_x)
 
 
-reset_pid = _reset_from_generator(reset_from_uniform_pid)
+reset_pid = reset_from_generator(reset_from_uniform_pid, n_uniform)
 reset_obs_pid = _state_vec
 
 
@@ -402,5 +393,5 @@ def step_ye_int(cfg: LegacyYeIntConfig, state: LegacyState, action):
     return _legacy_step(cfg, state, action, _asmc_law, _done_min_x, ye_int_mode=True)
 
 
-reset_ye_int = _reset_from_generator(reset_from_uniform_ye_int)
+reset_ye_int = reset_from_generator(reset_from_uniform_ye_int, n_uniform)
 reset_obs_ye_int = _state_vec

@@ -3,19 +3,20 @@
 ``make(env_id, device=None, **overrides)`` returns an :class:`EnvHandle`
 bound to a device: the CUDA card unless the caller names another one. Each
 entry bundles the config class and the batch-first pure functions of one env
-family. Registered: every id of the JAX package — ``usv-simple``,
-``usv-asmc-simple``, ``usv-aitsmc-simple``, ``usv-asmc-ca-v0``,
-``usv-curved-aitsmc`` and the three legacy ids ``usv-asmc-v0``, ``usv-pid-v0``
-and ``usv-asmc-ye-int-v0``.
+family. :func:`register` adds a family (or replaces one); every id of the
+JAX package goes through it — ``usv-simple``, ``usv-asmc-simple``,
+``usv-aitsmc-simple``, ``usv-asmc-ca-v0``, ``usv-curved-aitsmc`` and the
+three legacy ids ``usv-asmc-v0``, ``usv-pid-v0`` and ``usv-asmc-ye-int-v0``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
 from usv_tpu_torch.envs import asmc_ca, curved, legacy, simple, simple_aitsmc, simple_asmc
+from usv_tpu_torch.envs.types import reset_from_generator
 
 
 class EnvHandle(NamedTuple):
@@ -32,41 +33,57 @@ class EnvHandle(NamedTuple):
     reset_info: Optional[Callable] = None
 
 
-def _entry(module, config_cls, reset_info=True):
-    return dict(
+_REGISTRY: Dict[str, Dict[str, Any]] = {}
+
+
+def register(env_id: str, config_cls, reset_from_uniform: Callable, n_uniform: Callable,
+             step: Callable, reset_obs: Callable, reset_info: Optional[Callable] = None):
+    """Register an env family under ``env_id`` (an id registered before is
+    replaced), so that :func:`make`, ``BatchedEnv``, ``rollout``,
+    ``throughput`` and the learners take it.
+
+    ``reset_from_uniform(cfg, u)`` builds ``B`` fresh states from a
+    ``(B, n_uniform(cfg))`` block of uniforms in [0, 1); the entry's
+    ``reset`` draws that block (``types.reset_from_generator``).
+    ``step(cfg, state, action) -> (state, TimeStep)`` and
+    ``reset_obs(cfg, state) -> obs`` are batch-first; ``reset_info(cfg,
+    state)``, where given, is the post-reset info dict. The counterpart of
+    ``usv_tpu.envs.registry.register``, whose ``reset(cfg, key)`` becomes
+    the pair ``reset_from_uniform``, ``n_uniform``.
+    """
+    _REGISTRY[env_id] = dict(
         config_cls=config_cls,
-        reset=module.reset,
-        reset_from_uniform=module.reset_from_uniform,
-        n_uniform=module.n_uniform,
-        step=module.step,
-        reset_obs=module.reset_obs,
-        reset_info=module.reset_info if reset_info else None,
+        reset=reset_from_generator(reset_from_uniform, n_uniform),
+        reset_from_uniform=reset_from_uniform,
+        n_uniform=n_uniform,
+        step=step,
+        reset_obs=reset_obs,
+        reset_info=reset_info,
     )
 
 
-def _legacy_entry(name, config_cls):
-    """One of the three legacy ids: ``legacy.<function>_<name>``."""
-    return dict(
-        config_cls=config_cls,
-        reset=getattr(legacy, f"reset_{name}"),
-        reset_from_uniform=getattr(legacy, f"reset_from_uniform_{name}"),
-        n_uniform=legacy.n_uniform,
-        step=getattr(legacy, f"step_{name}"),
-        reset_obs=getattr(legacy, f"reset_obs_{name}"),
-        reset_info=None,
-    )
+def _register_builtin():
+    for env_id, module, config_cls, with_info in (
+        ("usv-simple", simple, simple.SimpleEnvConfig, True),
+        ("usv-asmc-simple", simple_asmc, simple_asmc.SimpleAsmcEnvConfig, True),
+        ("usv-aitsmc-simple", simple_aitsmc, simple_aitsmc.SimpleAitsmcEnvConfig, True),
+        ("usv-asmc-ca-v0", asmc_ca, asmc_ca.CaEnvConfig, False),
+        ("usv-curved-aitsmc", curved, curved.CurvedEnvConfig, False),
+    ):
+        register(env_id, config_cls, module.reset_from_uniform, module.n_uniform, module.step,
+                 module.reset_obs, reset_info=module.reset_info if with_info else None)
+    # the three legacy ids: legacy.<function>_<name>
+    for env_id, name, config_cls in (
+        ("usv-asmc-v0", "asmc", legacy.LegacyAsmcConfig),
+        ("usv-pid-v0", "pid", legacy.LegacyPidConfig),
+        ("usv-asmc-ye-int-v0", "ye_int", legacy.LegacyYeIntConfig),
+    ):
+        register(env_id, config_cls, getattr(legacy, f"reset_from_uniform_{name}"),
+                 legacy.n_uniform, getattr(legacy, f"step_{name}"),
+                 getattr(legacy, f"reset_obs_{name}"))
 
 
-_REGISTRY = {
-    "usv-simple": _entry(simple, simple.SimpleEnvConfig),
-    "usv-asmc-simple": _entry(simple_asmc, simple_asmc.SimpleAsmcEnvConfig),
-    "usv-aitsmc-simple": _entry(simple_aitsmc, simple_aitsmc.SimpleAitsmcEnvConfig),
-    "usv-asmc-ca-v0": _entry(asmc_ca, asmc_ca.CaEnvConfig, reset_info=False),
-    "usv-curved-aitsmc": _entry(curved, curved.CurvedEnvConfig, reset_info=False),
-    "usv-asmc-v0": _legacy_entry("asmc", legacy.LegacyAsmcConfig),
-    "usv-pid-v0": _legacy_entry("pid", legacy.LegacyPidConfig),
-    "usv-asmc-ye-int-v0": _legacy_entry("ye_int", legacy.LegacyYeIntConfig),
-}
+_register_builtin()
 
 
 def registered_ids():

@@ -30,7 +30,7 @@ import torch
 
 from usv_tpu_torch.core.angles import wrap_angle
 from usv_tpu_torch.core.geometry import closest_point_on_segment, cross_track_error
-from usv_tpu_torch.envs.types import TimeStep
+from usv_tpu_torch.envs.types import TimeStep, reset_from_generator
 from usv_tpu_torch.ops.dispatch import sensor_raycast
 
 TWO_PI = 2.0 * math.pi
@@ -340,12 +340,7 @@ def reset_from_uniform(cfg: SimpleEnvConfig, u: torch.Tensor) -> SimpleEnvState:
     )
 
 
-def reset(cfg: SimpleEnvConfig, generator: torch.Generator, num_envs: int, device) -> SimpleEnvState:
-    """``num_envs`` fresh envs from one ``torch.rand`` block drawn from ``generator``."""
-    u = torch.rand(
-        (num_envs, n_uniform(cfg)), generator=generator, dtype=torch.float32, device=device
-    )
-    return reset_from_uniform(cfg, u)
+reset = reset_from_generator(reset_from_uniform, n_uniform)
 
 
 def reset_obs(cfg: SimpleEnvConfig, state: SimpleEnvState) -> torch.Tensor:

@@ -32,7 +32,7 @@ from usv_tpu_torch.control.aitsmc import (
 )
 from usv_tpu_torch.envs import simple
 from usv_tpu_torch.envs.simple import SimpleEnvConfig, SimpleEnvState
-from usv_tpu_torch.envs.types import TimeStep
+from usv_tpu_torch.envs.types import TimeStep, reset_from_generator
 from usv_tpu_torch.physics.dynamics import DynamicsState
 from usv_tpu_torch.physics.params import VehicleParams
 
@@ -89,11 +89,7 @@ def reset_from_uniform(cfg: SimpleAitsmcEnvConfig, u: torch.Tensor) -> SimpleAit
     )
 
 
-def reset(cfg: SimpleAitsmcEnvConfig, generator: torch.Generator, num_envs: int,
-          device) -> SimpleAitsmcEnvState:
-    u = torch.rand((num_envs, n_uniform(cfg)), generator=generator,
-                   dtype=torch.float32, device=device)
-    return reset_from_uniform(cfg, u)
+reset = reset_from_generator(reset_from_uniform, n_uniform)
 
 
 def reset_obs(cfg: SimpleAitsmcEnvConfig, state: SimpleAitsmcEnvState):

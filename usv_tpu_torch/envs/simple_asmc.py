@@ -26,6 +26,7 @@ from usv_tpu_torch.control.asmc import (
     init_asmc,
 )
 from usv_tpu_torch.envs import simple
+from usv_tpu_torch.envs.types import reset_from_generator
 from usv_tpu_torch.envs.simple import SimpleEnvConfig, SimpleEnvState
 from usv_tpu_torch.physics.dynamics import DynamicsState
 from usv_tpu_torch.physics.params import VehicleParams
@@ -71,11 +72,7 @@ def reset_from_uniform(cfg: SimpleAsmcEnvConfig, u: torch.Tensor) -> SimpleAsmcE
     )
 
 
-def reset(cfg: SimpleAsmcEnvConfig, generator: torch.Generator, num_envs: int,
-          device) -> SimpleAsmcEnvState:
-    u = torch.rand((num_envs, n_uniform(cfg)), generator=generator,
-                   dtype=torch.float32, device=device)
-    return reset_from_uniform(cfg, u)
+reset = reset_from_generator(reset_from_uniform, n_uniform)
 
 
 def reset_obs(cfg: SimpleAsmcEnvConfig, state: SimpleAsmcEnvState):

@@ -14,7 +14,7 @@ walks them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import torch
 
@@ -57,3 +57,16 @@ def tree_leaves(state):
         return [leaf for f in dataclasses.fields(state)
                 for leaf in tree_leaves(getattr(state, f.name))]
     return [state]
+
+
+def reset_from_generator(reset_from_uniform: Callable, n_uniform: Callable) -> Callable:
+    """A family's ``reset(cfg, generator, num_envs, device)``: ``num_envs``
+    fresh envs from one ``torch.rand`` block of ``(num_envs, n_uniform(cfg))``
+    drawn from ``generator`` and handed to ``reset_from_uniform``."""
+
+    def reset(cfg, generator: torch.Generator, num_envs: int, device):
+        u = torch.rand((num_envs, n_uniform(cfg)), generator=generator,
+                       dtype=torch.float32, device=device)
+        return reset_from_uniform(cfg, u)
+
+    return reset

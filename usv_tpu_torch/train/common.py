@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from usv_tpu_torch.envs.types import tree_map
+from usv_tpu_torch.utils.seeding import derived_seed, new_generator  # noqa: F401 (re-exported)
 
 
 @contextlib.contextmanager
@@ -28,19 +29,6 @@ def seeded_init(seed: int):
     with torch.random.fork_rng(devices=[]):
         torch.default_generator.manual_seed(int(seed))
         yield
-
-
-def derived_seed(*words: int) -> int:
-    """A 32-bit seed mixed from ``words`` (the run's seed, its counters and a
-    purpose tag) — the port's ``jax.random.fold_in``: it draws nothing from
-    any generator, so deriving it leaves the training stream untouched."""
-    return int(np.random.SeedSequence([int(w) for w in words]).generate_state(1)[0])
-
-
-def new_generator(seed: int, device) -> torch.Generator:
-    g = torch.Generator(device=device)
-    g.manual_seed(int(seed))
-    return g
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable[[int], float]:
