@@ -12,7 +12,8 @@ recipes' widths — through the entry points a user calls (``make``,
 ``load_policy``, ``batch_policy_metrics``, ``run_sac.main``,
 ``run_ppo.main``, the gym adapters and ``UsvVectorEnv``; ``run_sac.main --shard``
 in launched ranks; ``rollout``/``throughput`` with a policy, ``collect=True``
-and ``envs.register``), after building the ray-cast
+and ``envs.register``; the band study ``study_robust_band.main``
+with ``bundle_eval``), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -151,7 +152,25 @@ version on the card. Phases, each of which exits non-zero on failure:
     actor's live state (B=4096 R=128 K=32, timed in the ``kernels`` line);
     an id registered through ``envs.register`` (``usv-simple``'s functions,
     ``max_episode_steps=100``) through ``rollout`` and ``throughput``, bit for
-    bit against ``make("usv-simple", max_episode_steps=100)``.
+    bit against ``make("usv-simple", max_episode_steps=100)``;
+22. the learning study: ``usv_tpu_torch.tools.study_robust_band.main`` in
+    this process, one invocation of ``run_sac --recipe robust`` on
+    ``usv-simple`` at full width (4 seeds x 1024 envs) and a 2e6-step budget
+    a seed (blocks of 8 rounds, an in-run eval every 2), 200-step evals and 2
+    eval seeds: the artifact's key tree (its ``device`` and
+    ``untrained_floor`` set aside) equal to that of the JAX record
+    ``docs/artifacts/sac_robust_budget_100m_r5.json``, the winner the
+    seed of the highest selection mean, the recorded selection eval
+    replayed bit for bit, and the winner bundle scored by ``bundle_eval`` on
+    the card and on the CPU (16 envs x 200 steps, each eval seed; the CPU
+    fed the card's reset draws through two ids registered with
+    ``usv-simple``'s functions) within 5e-3 on ``reward_per_step``, or, where
+    it misses, every env that parts doing so at a tangency ray: the same
+    eval stepped on both sides in lockstep, each env's action, obs, reward
+    and done within 1e-4 until one side's sensor ray (one or two) grazes an
+    obstacle the other's misses with everything else equal; the first step
+    at which actions part, each parting and the phase's wall time and
+    selection means printed.
 
 Every phase heading prints the seconds since the script started.
 
@@ -198,6 +217,16 @@ PPO_POP_ITERS = 2   # run_ppo --recipe robust on the CA env, --n-steps cut to PP
 PPO_POP_EVAL_STEPS = 16
 ANATOMY_SEEDS = (1, 2, 4)
 TRACE_STEPS = 48    # the video rollout's trace, card against CPU
+# phase 22: the band study at a short budget. The recipe's block of
+# 200 rounds is 13,107,200 env-steps a seed, so blocks of 8 rounds (524,288)
+# keep the budget near 2e6 (4 blocks), with an in-run eval every 2
+STUDY_TOTAL_STEPS = "2e6"
+STUDY_TRAIN_ARGS = ("--rounds-per-block", "8", "--eval-every-blocks", "2")
+STUDY_EVAL_STEPS = 200
+STUDY_EVAL_SEEDS = 2
+STUDY_GATE = 5e-3   # bundle_eval's reward_per_step, card against CPU
+STUDY_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
+                            "sac_robust_budget_100m_r5.json")
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -2443,6 +2472,178 @@ def policy_rollout(device, card, rc, time_shape):
     return {"policy_rollout": out}, live_err, row
 
 
+def key_tree(x):
+    """The nested keys of a JSON value: dicts by key, a list by its first item."""
+    if isinstance(x, dict):
+        return {k: key_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [key_tree(x[0])] if x else []
+    return None
+
+
+def reset_draw_ids(suffix):
+    """Two ids with ``usv-simple``'s functions: the first keeps a host copy
+    of every reset block it is handed, the second is handed those blocks in
+    turn in place of its own draws. Returns ``(recording id, replaying id,
+    blocks, the blocks replayed so far)``."""
+    from usv_tpu_torch.envs import register, simple
+
+    blocks, replayed = [], []
+
+    def recording(cfg, u):
+        blocks.append(u.cpu())
+        return simple.reset_from_uniform(cfg, u)
+
+    def replaying(cfg, u):
+        replayed.append(blocks[len(replayed)])
+        return simple.reset_from_uniform(cfg, replayed[-1].to(u.device))
+
+    ids = (f"smoke/usv-simple-recorded-{suffix}", f"smoke/usv-simple-replayed-{suffix}")
+    for env_id, fn in zip(ids, (recording, replaying)):
+        register(env_id, simple.SimpleEnvConfig, fn, simple.n_uniform, simple.step,
+                 simple.reset_obs, reset_info=simple.reset_info)
+    return ids[0], ids[1], blocks, replayed
+
+
+def lockstep_partings(device, bundle, blocks, steps, episodes):
+    """``bundle``'s deterministic eval on the card and on the CPU fed the
+    same reset blocks, env by env. An env parts at the first step at which
+    its action, obs, reward or done differ by more than ATOL on the two
+    sides; from then on its two trajectories are two different runs.
+    Returns ``(partings, first step whose actions differ by more than ATOL
+    or None, largest reward difference of an env-step before its env
+    parted)``; ``partings`` maps an env to its parting step, the sensor
+    rays that differ there, the largest non-sensor obs, reward and action
+    differences there, and whether done agrees."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.policy import load_policy
+    from usv_tpu_torch.vector import BatchedEnv
+
+    sides = {}
+    for dev in (device, "cpu"):
+        policy = load_policy(bundle, device=dev)
+        benv = BatchedEnv(make("usv-simple", device=dev), episodes, frame_stack=policy.frame_stack)
+        sides[dev] = [policy, benv, benv.reset(0, uniform=blocks[0].to(dev))[0]]
+    cfg = benv.cfg
+    sensor_from = cfg.obs_dim - cfg.sensor_count
+    partings, first_action, worst_reward = {}, None, 0.0
+    with torch.no_grad():
+        for t in range(steps):
+            card_act, cpu_act = (side[0](side[2].stacked_obs) for side in sides.values())
+            act_gap = (card_act.cpu() - cpu_act).abs().max(1).values
+            if first_action is None and bool((act_gap > ATOL).any()):
+                first_action = t
+            out = []
+            for (dev, side), act in zip(sides.items(), (card_act, cpu_act)):
+                side[2], ts = side[1].step(side[2], act, uniform=blocks[t + 1].to(dev))
+                out.append(ts)
+            obs_gap = (out[0].obs.cpu() - out[1].obs).abs()
+            rew_gap = (out[0].reward.cpu() - out[1].reward).abs()
+            done_eq = out[0].done.cpu() == out[1].done
+            for e in range(episodes):
+                if e in partings:
+                    continue
+                rays = int((obs_gap[e, sensor_from:] > ATOL).sum())
+                other = float(obs_gap[e, :sensor_from].max())
+                if rays or other > ATOL or rew_gap[e] > ATOL or act_gap[e] > ATOL or not done_eq[e]:
+                    partings[e] = dict(step=t, rays=rays, non_sensor_gap=other,
+                                       reward_gap=float(rew_gap[e]), action_gap=float(act_gap[e]),
+                                       done_equal=bool(done_eq[e]))
+                else:
+                    worst_reward = max(worst_reward, float(rew_gap[e]))
+    return partings, first_action, worst_reward
+
+
+def learning_study(device, card, rc, tmp):
+    """Phase 22: ``usv_tpu_torch.tools.study_robust_band`` in this process,
+    one invocation at a short budget (the record's flags otherwise), with
+    its gates: the artifact's key tree equals the JAX record's, the winner
+    is the best selection mean, the recorded selection eval replays bit for
+    bit, and the winner scored by ``bundle_eval`` on the card and on the CPU
+    (fed the card's reset draws: the two devices' generators draw different
+    streams from one seed) agrees within STUDY_GATE on every eval seed, or
+    its gap comes from envs that part at a tangency ray: env by env, the
+    two sides agree within ATOL until one side's sensor ray grazes an
+    obstacle that the other's misses, after which that env's runs are two
+    runs (ROADMAP queue 3 logs the eval seed where the gate misses)."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.tools import study_robust_band
+    from usv_tpu_torch.train.evaluate import bundle_eval
+    from usv_tpu_torch.train.policy import replay_recorded_eval
+
+    t0 = time.perf_counter()
+    rc.counter.launches = 0
+    art = study_robust_band.main([
+        "--learner", "sac", "--env", "usv-simple", "--invocations", "1",
+        "--total-steps", STUDY_TOTAL_STEPS, "--base-seed-start", "9500", "--best-metric", "reward",
+        "--eval-steps", str(STUDY_EVAL_STEPS), "--eval-seeds", str(STUDY_EVAL_SEEDS),
+        "--outdir", tmp, "--artifact", os.path.join(tmp, "study.json"),
+    ] + [f"--train-arg={a}" for a in STUDY_TRAIN_ARGS])
+    wall = time.perf_counter() - t0
+    launches = rc.counter.launches
+    check(launches > 0, "the study launched no kernel")
+    rec = art["invocations"][0]
+    means = {s["seed"]: s["select_mean"] for s in rec["selection"]}
+    print(f"  study wall {wall:.1f} s ({rec['wall_seconds']} s training); {launches} kernel launches; "
+          f"device {art['device']}", flush=True)
+    print(f"  selection means by seed {means}; winner {rec['winner_seed']}; winner's eval mean "
+          f"{rec['reward_per_step_mean']} over {STUDY_EVAL_SEEDS} eval seeds; untrained floor "
+          f"{art['untrained_floor'][0]['reward_per_step_mean']}", flush=True)
+
+    with open(STUDY_RECORD) as f:
+        reference = json.load(f)
+    ours = {k: v for k, v in art.items() if k not in ("device", "untrained_floor")}
+    check(key_tree(ours) == key_tree(reference),
+          f"the artifact's key tree differs from {STUDY_RECORD}'s")
+    check(rec["winner_seed"] == max(means, key=means.get),
+          f"winner {rec['winner_seed']} is not the best selection mean {means}")
+    check(art["device"] == card, f"artifact device {art['device']!r}")
+
+    bundle = os.path.join(tmp, f"sac_usv-simple_b{rec['base_seed']}", "policy_best")
+    rep = replay_recorded_eval(make("usv-simple"), bundle)
+    check(rep["recorded"] == rep["replayed"],
+          f"the recorded selection eval {rep['recorded']!r} replays as {rep['replayed']!r}")
+    print(f"  recorded selection eval {rep['recorded']!r} replayed bit for bit", flush=True)
+
+    gaps = []
+    for es in range(STUDY_EVAL_SEEDS):
+        recorded_id, replayed_id, blocks, replayed = reset_draw_ids(es)
+        on_card = bundle_eval(recorded_id, bundle, steps=STUDY_EVAL_STEPS, seed=es)
+        on_cpu = bundle_eval(replayed_id, bundle, steps=STUDY_EVAL_STEPS, seed=es, device="cpu")
+        check(len(replayed) == len(blocks) == STUDY_EVAL_STEPS + 1,
+              f"eval seed {es}: {len(blocks)} reset blocks drawn, {len(replayed)} replayed")
+        # the recording id draws what usv-simple draws: the artifact's score
+        check(round(on_card["reward_per_step"], 4) == rec["evals"][es]["reward_per_step"],
+              f"eval seed {es}: bundle_eval on the card {on_card} against the artifact's {rec['evals'][es]}")
+        gap = abs(on_card["reward_per_step"] - on_cpu["reward_per_step"])
+        partings, first, worst = lockstep_partings(device, bundle, blocks, STUDY_EVAL_STEPS, 16)
+        print(f"  eval seed {es}: bundle_eval reward_per_step card {on_card['reward_per_step']:.6f}, "
+              f"CPU {on_cpu['reward_per_step']:.6f}, gap {gap:.3g} (gate {STUDY_GATE}: "
+              f"{'held' if gap <= STUDY_GATE else 'missed'}); actions first differ by > {ATOL} at "
+              f"step {first} of {STUDY_EVAL_STEPS}; {len(partings)} of 16 envs part, the others' "
+              f"rewards within {worst:.3g}", flush=True)
+        for e, p in sorted(partings.items(), key=lambda kv: kv[1]["step"]):
+            print(f"    env {e} parts at step {p['step']}: {p['rays']} sensor ray(s) differ, "
+                  f"non-sensor obs {p['non_sensor_gap']:.3g}, reward {p['reward_gap']:.3g}, action "
+                  f"{p['action_gap']:.3g}, done equal {p['done_equal']}", flush=True)
+            # a tangency: one side's ray grazes an obstacle the other's misses
+            # (one or two rays), while position, reward, action and done agree
+            check(1 <= p["rays"] <= 2 and p["non_sensor_gap"] <= ATOL and p["reward_gap"] <= ATOL
+                  and p["action_gap"] <= ATOL and p["done_equal"],
+                  f"eval seed {es}: env {e} parts at step {p['step']} other than at a tangency ray: {p}")
+        check(worst <= ATOL, f"eval seed {es}: rewards differ by {worst} before their envs part")
+        check(gap <= STUDY_GATE or partings,
+              f"eval seed {es}: card and CPU differ by {gap} on reward_per_step with no env parted")
+        gaps.append(dict(seed=es, card=on_card["reward_per_step"], cpu=on_cpu["reward_per_step"],
+                         gap=gap, first_action_step=first, reward_gap_before_parting=worst,
+                         partings=partings))
+    return {"learning_study": dict(
+        seconds=time.perf_counter() - t0, study_seconds=wall, launches=launches,
+        selection_means=means, winner_seed=rec["winner_seed"],
+        winner_eval_mean=rec["reward_per_step_mean"],
+        untrained_floor=art["untrained_floor"][0]["reward_per_step_mean"], card_vs_cpu=gaps)}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -2660,6 +2861,10 @@ def main():
     max_err = max(max_err, live_err)
     other_rows.append(policy_row)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("learning study: study_robust_band at a 2e6-step budget")
+        study_record = learning_study(device, card, rc, tmp)
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -2703,6 +2908,7 @@ def main():
         **gym_record,
         **dp_record,
         **policy_record,
+        **study_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

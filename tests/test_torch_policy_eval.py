@@ -21,6 +21,7 @@ against the JAX package, on the CPU.
 
 import dataclasses
 import json
+import sys
 from collections.abc import Mapping
 
 import jax
@@ -363,6 +364,18 @@ def test_run_eval_cli_on_the_cpu(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_eval.main(["--steps", "1", "--out", str(tmp_path / "card")])
+
+
+def test_run_eval_cli_without_matplotlib(tmp_path, capsys, monkeypatch):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # import raises ImportError
+    out = tmp_path / "eval"
+    run_eval.main(["--env", "usv-simple", "--out", str(out), "--steps", "5", "--episodes", "2",
+                   "--device", "cpu"])
+    summary = json.loads((out / "summary.json").read_text())
+    assert summary["steps"] == 5 and not (out / "diagnostics.png").exists()
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert printed[0] == "matplotlib is not installed: no diagnostics figure"
+    assert json.loads(printed[1]) == summary and printed[-1] == f"wrote {out / 'summary.json'}"
 
 
 def test_bundle_eval_and_in_run_eval_meta(tmp_path):

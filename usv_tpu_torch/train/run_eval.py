@@ -5,7 +5,8 @@
         --policy runs/sac/policy --out runs/sac/eval [--device cpu]
 
 Runs on the CUDA device unless ``--device`` names another. Writes the 8-panel
-diagnostics figure and a JSON metrics summary. ``--policy`` is a bundle
+diagnostics figure (where matplotlib is installed; JAX's CLI requires it) and
+a JSON metrics summary. ``--policy`` is a bundle
 directory (``usv_tpu_torch.train.policy.save_policy``) or a ``policy_np.npz``
 exported by this package or by the JAX package; with no ``--policy`` it
 evaluates the zero-action baseline. ``--video`` also renders one episode to
@@ -83,12 +84,20 @@ def main(argv=None):
         def batch_policy_fn(obs):
             return torch.zeros((obs.shape[0], act_dim), device=handle.device)
 
-    # 1) single-env info-trace rollout -> diagnostics figure
-    trace = rollout_with_info(
-        handle, policy_fn, n_steps=args.steps, seed=args.seed,
-        frame_stack=frame_stack,
-    )
-    fig_path = plot_diagnostics(trace, out_path=str(out / "diagnostics.png"))
+    # 1) single-env info-trace rollout -> diagnostics figure, where the host
+    # has matplotlib (a host without it writes the summary alone)
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        written = [out / "summary.json"]
+        print("matplotlib is not installed: no diagnostics figure", flush=True)
+    else:
+        trace = rollout_with_info(
+            handle, policy_fn, n_steps=args.steps, seed=args.seed,
+            frame_stack=frame_stack,
+        )
+        written = [plot_diagnostics(trace, out_path=str(out / "diagnostics.png")),
+                   out / "summary.json"]
 
     # 2) batched frame-stacked rollout -> summary metrics (shared
     # implementation, evaluate.batch_policy_metrics)
@@ -116,7 +125,7 @@ def main(argv=None):
             handle, batch_policy_fn, str(out / "episode"),
             n_steps=args.steps, seed=args.seed, frame_stack=frame_stack,
         )
-    print(f"wrote {fig_path} and {out / 'summary.json'}", flush=True)
+    print(f"wrote {' and '.join(str(w) for w in written)}", flush=True)
 
 
 if __name__ == "__main__":
