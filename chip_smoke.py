@@ -13,7 +13,8 @@ recipes' widths — through the entry points a user calls (``make``,
 ``run_ppo.main``, the gym adapters and ``UsvVectorEnv``; ``run_sac.main --shard``
 in launched ranks; ``rollout``/``throughput`` with a policy, ``collect=True``
 and ``envs.register``; the band study ``study_robust_band.main``
-with ``bundle_eval``), after building the ray-cast
+with ``bundle_eval``; the PPO seed study ``study_ppo_k4_seeds.main``, in
+series and side by side), after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -116,7 +117,8 @@ version on the card. Phases, each of which exits non-zero on failure:
     on the pairs this data needs, counted on the card), at the shapes the
     system launches on live states (the three env paths', the two
     learners', the two populations' and the gym surface's; phases 20 and
-    21 add rank 0's and the policy rollout's), and with ``n_acc`` 1, 2 and
+    21 add rank 0's and the policy rollout's, phase 23 the PPO learner's on
+    ``usv-simple``), and with ``n_acc`` 1, 2 and
     4, with no slot valid and for an empty kernel of the same grid;
 20. data parallel (``usv_tpu_torch.parallel``): ``run_sac.main --recipe
     at-scale --shard --shard-local-replay`` on ``usv-simple`` in a launched
@@ -170,7 +172,26 @@ version on the card. Phases, each of which exits non-zero on failure:
     and done within 1e-4 until one side's sensor ray (one or two) grazes an
     obstacle the other's misses with everything else equal; the first step
     at which actions part, each parting and the phase's wall time and
-    selection means printed.
+    selection means printed;
+23. the PPO seed study: ``usv_tpu_torch.tools.study_ppo_k4_seeds.main`` in
+    this process, seeds 0 and 1 of ``run_ppo --recipe at-scale`` on
+    ``usv-simple`` at full width (256 envs, ``n_steps`` 2048, minibatch
+    2048, update fusion 4, single shuffle) and a budget of one iteration
+    (524,288 env-steps) a seed, 200-step evals over 3 eval seeds (no in-run
+    eval fires, so each seed's final ``policy`` is scored); then the same
+    two seeds as two concurrent single-seed processes
+    (``usv_tpu_torch.tools.side_by_side``), combined. Gates: both artifacts
+    have the key tree of the JAX record
+    ``docs/artifacts/ppo_k4_seed_study_r4_global.json`` plus the JAX
+    script's ``seed_offset``, ``seed_range`` and ``note`` and the port's
+    keys; each seed's evals, untrained floor and collect reward equal to
+    the digit serial and side by side; 2048 kernel launches a seed's
+    iteration plus one an eval step, in this process and in each of the
+    two; seed 0's bundle scored by ``bundle_eval`` on the card against the
+    CPU fed the card's reset draws under phase 22's rule (5e-3, or each env
+    at 1e-4 until its tangency ray), on every eval seed; the kernel against
+    its plain version on the learner's live state (B=256 R=128 K=32), timed
+    in the ``kernels`` line.
 
 Every phase heading prints the seconds since the script started.
 
@@ -227,6 +248,15 @@ STUDY_EVAL_SEEDS = 2
 STUDY_GATE = 5e-3   # bundle_eval's reward_per_step, card against CPU
 STUDY_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
                             "sac_robust_budget_100m_r5.json")
+# phase 23: the PPO seed study at a one-iteration budget (256 envs x 2048
+# steps a seed), serial in this process and side by side in two processes
+PPO_STUDY_FLAGS = ("--total-steps", "524288", "--env", "usv-simple", "--best-metric", "reward",
+                   "--eval-steps", "200")
+PPO_STUDY_SEEDS = 2
+PPO_STUDY_EVAL_STEPS = 200
+PPO_STUDY_EVAL_SEEDS = 3  # the study's default
+PPO_STUDY_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
+                                "ppo_k4_seed_study_r4_global.json")
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -2554,6 +2584,53 @@ def lockstep_partings(device, bundle, blocks, steps, episodes):
     return partings, first_action, worst_reward
 
 
+def bundle_eval_card_vs_cpu(device, bundle, recorded, steps, suffix):
+    """``bundle``'s ``bundle_eval`` on ``usv-simple`` on the card and on the
+    CPU (fed the card's reset draws: the two devices' generators draw
+    different streams from one seed), for each eval seed of ``recorded``
+    (a study artifact's evals). The card equals the artifact's score, and
+    the two sides agree within STUDY_GATE on ``reward_per_step``, or its gap
+    comes from envs that part at a tangency ray: env by env, the two sides
+    agree within ATOL until one side's sensor ray grazes an obstacle that the
+    other's misses, after which that env's runs are two runs. Returns each
+    eval seed's gap and partings."""
+    from usv_tpu_torch.train.evaluate import bundle_eval
+
+    gaps = []
+    for es, want in enumerate(recorded):
+        recorded_id, replayed_id, blocks, replayed = reset_draw_ids(f"{suffix}{es}")
+        on_card = bundle_eval(recorded_id, bundle, steps=steps, seed=es)
+        on_cpu = bundle_eval(replayed_id, bundle, steps=steps, seed=es, device="cpu")
+        check(len(replayed) == len(blocks) == steps + 1,
+              f"eval seed {es}: {len(blocks)} reset blocks drawn, {len(replayed)} replayed")
+        # the recording id draws what usv-simple draws: the artifact's score
+        check(round(on_card["reward_per_step"], 4) == want["reward_per_step"],
+              f"eval seed {es}: bundle_eval on the card {on_card} against the artifact's {want}")
+        gap = abs(on_card["reward_per_step"] - on_cpu["reward_per_step"])
+        partings, first, worst = lockstep_partings(device, bundle, blocks, steps, 16)
+        print(f"  eval seed {es}: bundle_eval reward_per_step card {on_card['reward_per_step']:.6f}, "
+              f"CPU {on_cpu['reward_per_step']:.6f}, gap {gap:.3g} (gate {STUDY_GATE}: "
+              f"{'held' if gap <= STUDY_GATE else 'missed'}); actions first differ by > {ATOL} at "
+              f"step {first} of {steps}; {len(partings)} of 16 envs part, the others' "
+              f"rewards within {worst:.3g}", flush=True)
+        for e, p in sorted(partings.items(), key=lambda kv: kv[1]["step"]):
+            print(f"    env {e} parts at step {p['step']}: {p['rays']} sensor ray(s) differ, "
+                  f"non-sensor obs {p['non_sensor_gap']:.3g}, reward {p['reward_gap']:.3g}, action "
+                  f"{p['action_gap']:.3g}, done equal {p['done_equal']}", flush=True)
+            # a tangency: one side's ray grazes an obstacle the other's misses
+            # (one or two rays), while position, reward, action and done agree
+            check(1 <= p["rays"] <= 2 and p["non_sensor_gap"] <= ATOL and p["reward_gap"] <= ATOL
+                  and p["action_gap"] <= ATOL and p["done_equal"],
+                  f"eval seed {es}: env {e} parts at step {p['step']} other than at a tangency ray: {p}")
+        check(worst <= ATOL, f"eval seed {es}: rewards differ by {worst} before their envs part")
+        check(gap <= STUDY_GATE or partings,
+              f"eval seed {es}: card and CPU differ by {gap} on reward_per_step with no env parted")
+        gaps.append(dict(seed=es, card=on_card["reward_per_step"], cpu=on_cpu["reward_per_step"],
+                         gap=gap, first_action_step=first, reward_gap_before_parting=worst,
+                         partings=partings))
+    return gaps
+
+
 def learning_study(device, card, rc, tmp):
     """Phase 22: ``usv_tpu_torch.tools.study_robust_band`` in this process,
     one invocation at a short budget (the record's flags otherwise), with
@@ -2568,7 +2645,6 @@ def learning_study(device, card, rc, tmp):
     runs (ROADMAP queue 3 logs the eval seed where the gate misses)."""
     from usv_tpu_torch.envs import make
     from usv_tpu_torch.tools import study_robust_band
-    from usv_tpu_torch.train.evaluate import bundle_eval
     from usv_tpu_torch.train.policy import replay_recorded_eval
 
     t0 = time.perf_counter()
@@ -2605,43 +2681,101 @@ def learning_study(device, card, rc, tmp):
           f"the recorded selection eval {rep['recorded']!r} replays as {rep['replayed']!r}")
     print(f"  recorded selection eval {rep['recorded']!r} replayed bit for bit", flush=True)
 
-    gaps = []
-    for es in range(STUDY_EVAL_SEEDS):
-        recorded_id, replayed_id, blocks, replayed = reset_draw_ids(es)
-        on_card = bundle_eval(recorded_id, bundle, steps=STUDY_EVAL_STEPS, seed=es)
-        on_cpu = bundle_eval(replayed_id, bundle, steps=STUDY_EVAL_STEPS, seed=es, device="cpu")
-        check(len(replayed) == len(blocks) == STUDY_EVAL_STEPS + 1,
-              f"eval seed {es}: {len(blocks)} reset blocks drawn, {len(replayed)} replayed")
-        # the recording id draws what usv-simple draws: the artifact's score
-        check(round(on_card["reward_per_step"], 4) == rec["evals"][es]["reward_per_step"],
-              f"eval seed {es}: bundle_eval on the card {on_card} against the artifact's {rec['evals'][es]}")
-        gap = abs(on_card["reward_per_step"] - on_cpu["reward_per_step"])
-        partings, first, worst = lockstep_partings(device, bundle, blocks, STUDY_EVAL_STEPS, 16)
-        print(f"  eval seed {es}: bundle_eval reward_per_step card {on_card['reward_per_step']:.6f}, "
-              f"CPU {on_cpu['reward_per_step']:.6f}, gap {gap:.3g} (gate {STUDY_GATE}: "
-              f"{'held' if gap <= STUDY_GATE else 'missed'}); actions first differ by > {ATOL} at "
-              f"step {first} of {STUDY_EVAL_STEPS}; {len(partings)} of 16 envs part, the others' "
-              f"rewards within {worst:.3g}", flush=True)
-        for e, p in sorted(partings.items(), key=lambda kv: kv[1]["step"]):
-            print(f"    env {e} parts at step {p['step']}: {p['rays']} sensor ray(s) differ, "
-                  f"non-sensor obs {p['non_sensor_gap']:.3g}, reward {p['reward_gap']:.3g}, action "
-                  f"{p['action_gap']:.3g}, done equal {p['done_equal']}", flush=True)
-            # a tangency: one side's ray grazes an obstacle the other's misses
-            # (one or two rays), while position, reward, action and done agree
-            check(1 <= p["rays"] <= 2 and p["non_sensor_gap"] <= ATOL and p["reward_gap"] <= ATOL
-                  and p["action_gap"] <= ATOL and p["done_equal"],
-                  f"eval seed {es}: env {e} parts at step {p['step']} other than at a tangency ray: {p}")
-        check(worst <= ATOL, f"eval seed {es}: rewards differ by {worst} before their envs part")
-        check(gap <= STUDY_GATE or partings,
-              f"eval seed {es}: card and CPU differ by {gap} on reward_per_step with no env parted")
-        gaps.append(dict(seed=es, card=on_card["reward_per_step"], cpu=on_cpu["reward_per_step"],
-                         gap=gap, first_action_step=first, reward_gap_before_parting=worst,
-                         partings=partings))
+    gaps = bundle_eval_card_vs_cpu(device, bundle, rec["evals"], STUDY_EVAL_STEPS, "")
     return {"learning_study": dict(
         seconds=time.perf_counter() - t0, study_seconds=wall, launches=launches,
         selection_means=means, winner_seed=rec["winner_seed"],
         winner_eval_mean=rec["reward_per_step_mean"],
         untrained_floor=art["untrained_floor"][0]["reward_per_step_mean"], card_vs_cpu=gaps)}
+
+
+def ppo_study(device, card, rc, tmp, time_shape):
+    """Phase 23: ``usv_tpu_torch.tools.study_ppo_k4_seeds`` at a budget of one
+    ``run_ppo --recipe at-scale`` iteration a seed (256 envs x 2048 steps,
+    no in-run eval, so each seed's ``policy`` is scored), serially in this
+    process and as two single-seed processes side by side
+    (``tools/side_by_side.py``), combined. Gates: both artifacts have the
+    JAX study's key tree plus the port's keys; each seed's evals and
+    untrained floor are equal to the digit in the two runs; the kernel's
+    launches are 2048 a seed's iteration plus one an eval step, in each run;
+    seed 0's bundle on the card against the CPU under phase 22's rule. Then
+    the kernel against its plain version on the learner's live state
+    (B=256 R=128 K=32), timed for the kernel table."""
+    from usv_tpu_torch.tools import side_by_side, study_ppo_k4_seeds
+    from usv_tpu_torch.train import run_ppo
+
+    t0 = time.perf_counter()
+    trained = []
+    real_main = run_ppo.main
+    run_ppo.main = lambda argv: trained.append(real_main(argv)) or trained[-1]
+    rc.counter.launches = 0
+    try:
+        serial = study_ppo_k4_seeds.main(
+            ["--seeds", str(PPO_STUDY_SEEDS), "--outdir", os.path.join(tmp, "serial"),
+             "--artifact", os.path.join(tmp, "serial.json")] + list(PPO_STUDY_FLAGS))
+    finally:
+        run_ppo.main = real_main
+    launches = rc.counter.launches
+    serial_s = time.perf_counter() - t0
+    learner, ts = trained[-1]
+    iter_steps = learner.cfg.n_steps * learner.cfg.num_envs
+    check((learner.cfg.num_envs, learner.cfg.n_steps, learner.cfg.batch_size, learner.cfg.update_fusion,
+           learner.cfg.reshuffle_epochs) == (256, 2048, 2048, 4, False),
+          f"the at-scale recipe on usv-simple resolved to {learner.cfg}")
+    # a seed: its one iteration's collect steps, the untrained floor's and the
+    # trained bundle's evals (one launch an eval step; a reset launches none)
+    per_seed = learner.cfg.n_steps + 2 * PPO_STUDY_EVAL_SEEDS * PPO_STUDY_EVAL_STEPS
+    check(launches == PPO_STUDY_SEEDS * per_seed,
+          f"the serial study: {launches} kernel launches, expected {PPO_STUDY_SEEDS} x {per_seed}")
+
+    t1 = time.perf_counter()
+    report = side_by_side.launch(0, PPO_STUDY_SEEDS, os.path.join(tmp, "side"), PPO_STUDY_FLAGS)
+    side_s = time.perf_counter() - t1
+    side = report["artifact"]
+
+    with open(PPO_STUDY_RECORD) as f:
+        expected = dict(key_tree(json.load(f)), seed_offset=None, seed_range=None, note=None)
+    port_keys = ("device", "untrained_floor", "side_by_side", "curves", "trained_env_steps")
+    for label, art in (("serial", serial), ("side by side", side)):
+        check(all(k in art for k in port_keys), f"{label}: the port's keys missing")
+        check(key_tree({k: v for k, v in art.items() if k not in port_keys}) == expected,
+              f"{label}: the artifact's key tree differs from the JAX study's")
+        check(art["device"] == card, f"{label}: artifact device {art['device']!r}")
+    for rec in report["per_seed"].values():
+        check(rec["launches"] == per_seed, f"side by side: {rec['launches']} launches, expected {per_seed}")
+    for a, b in zip(serial["per_seed"] + serial["untrained_floor"], side["per_seed"] + side["untrained_floor"]):
+        check(a["seed"] == b["seed"] and a["evals"] == b["evals"]
+              and a["reward_per_step_mean"] == b["reward_per_step_mean"],
+              f"seed {a['seed']}: serial {a} against side by side {b}")
+    check(serial["curves"] == side["curves"], "the collect rewards differ serial against side by side")
+    for rec in serial["per_seed"]:
+        print(f"  seed {rec['seed']}: evals {[e['reward_per_step'] for e in rec['evals']]} in both runs "
+              f"(train {rec['train_seconds']} s serial); untrained floor "
+              f"{serial['untrained_floor'][rec['seed']]['reward_per_step_mean']}; collect reward "
+              f"{serial['curves'][str(rec['seed'])]}", flush=True)
+    iter_s = {s: r["iteration_seconds"][0] for s, r in report["per_seed"].items()}
+    print(f"  serial {serial_s:.1f} s, {launches} launches ({PPO_STUDY_SEEDS} x {per_seed}); side by side "
+          f"{side_s:.1f} s, s per iteration {iter_s}, launches "
+          f"{[r['launches'] for r in report['per_seed'].values()]}; mean {side['mean']} floor "
+          f"{side['floor']} on {card}", flush=True)
+
+    bundle = os.path.join(tmp, "serial", "seed0", "policy")
+    gaps = bundle_eval_card_vs_cpu(device, bundle, serial["per_seed"][0]["evals"], PPO_STUDY_EVAL_STEPS, "ppo")
+
+    env_cfg = learner.handle.cfg
+    max_err = check_kernel_on_live_state("usv-simple", env_cfg, ts.batch.env)
+    live_args, live_bd = live_scene("usv-simple", env_cfg, ts.batch.env)
+    row = time_shape("PPO at-scale on usv-simple, the learner's live state,", live_args, live_bd,
+                     live_args[3])
+    row.update(launches_per_iteration=learner.cfg.n_steps, iteration_env_steps=iter_steps)
+    del learner, ts, trained
+    return {"ppo_study": dict(
+        seconds=time.perf_counter() - t0, serial_seconds=serial_s, side_by_side_seconds=side_s,
+        launches=launches, side_by_side_launches=[r["launches"] for r in report["per_seed"].values()],
+        side_by_side_iteration_seconds=iter_s,
+        evals={r["seed"]: r["evals"] for r in serial["per_seed"]},
+        untrained_floor=[f["reward_per_step_mean"] for f in serial["untrained_floor"]],
+        card_vs_cpu=gaps)}, max_err, row
 
 
 def main():
@@ -2865,6 +2999,12 @@ def main():
         phase("learning study: study_robust_band at a 2e6-step budget")
         study_record = learning_study(device, card, rc, tmp)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("PPO seed study: study_ppo_k4_seeds at one iteration a seed, serial and side by side")
+        ppo_study_record, live_err, ppo_study_row = ppo_study(device, card, rc, tmp, time_shape)
+        max_err = max(max_err, live_err)
+        other_rows.append(ppo_study_row)
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -2909,6 +3049,7 @@ def main():
         **dp_record,
         **policy_record,
         **study_record,
+        **ppo_study_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))
