@@ -14,7 +14,8 @@ recipes' widths — through the entry points a user calls (``make``,
 in launched ranks; ``rollout``/``throughput`` with a policy, ``collect=True``
 and ``envs.register``; the band study ``study_robust_band.main``
 with ``bundle_eval``; the PPO seed study ``study_ppo_k4_seeds.main``, in
-series and side by side), after building the ray-cast
+series and side by side; the measurement tools' and the examples' ``main``),
+after building the ray-cast
 kernel from ``usv_tpu_torch/csrc`` and holding it against its plain PyTorch
 version on the card. Phases, each of which exits non-zero on failure:
 
@@ -191,7 +192,27 @@ version on the card. Phases, each of which exits non-zero on failure:
     CPU fed the card's reset draws under phase 22's rule (5e-3, or each env
     at 1e-4 until its tangency ray), on every eval seed; the kernel against
     its plain version on the learner's live state (B=256 R=128 K=32), timed
-    in the ``kernels`` line.
+    in the ``kernels`` line;
+24. the measurement tools (``usv_tpu_torch/tools``) and the examples
+    (``usv_tpu_torch/examples``), each ``main`` in this process at a small
+    size on the card: ``bench_all`` on ``usv-simple`` and the CA env (16
+    steps a run, its artifact written to a temporary directory),
+    ``bench_step_anatomy`` with ``--cost-analysis`` (16 steps),
+    ``bench_asmc_simple`` (8 steps, unrolls 1 and 4), ``bench_policy`` (batch
+    1 and 256, a chain of 16), ``bench_train`` (two SAC modes, 2 rounds; one
+    PPO setting at 64 envs, its rollout cut to 128 steps),
+    ``reference_protocol_bench --side crossover`` (batch 64, 200 loop
+    steps; its record kept out of ``docs/artifacts``), ``scaling_check`` at
+    size 1, ``eval_aitsmc`` (32 steps, the impulse), ``reward_explore`` and
+    a 2-seed ``population_sweep``. Gates: each record's keys are the tool's
+    ``*_KEYS`` (held against the JAX scripts by
+    ``tests/test_torch_bench_tools.py``) with JAX's row labels and the
+    card's ``device`` line; each call's kernel launches equal what its code
+    implies (none for ``bench_policy``, none in 4 ``ignore_obstacles``
+    steps of each simple-family id); the reward curves card against CPU
+    within 1e-6. Then the kernel against its plain version on
+    ``usv-simple``'s live state at 64, 1024 and 2048 envs (the crossover's
+    and ``bench_train``'s widths), timed in the ``kernels`` line.
 
 Every phase heading prints the seconds since the script started.
 
@@ -257,6 +278,17 @@ PPO_STUDY_EVAL_STEPS = 200
 PPO_STUDY_EVAL_SEEDS = 3  # the study's default
 PPO_STUDY_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "docs", "artifacts",
                                 "ppo_k4_seed_study_r4_global.json")
+# phase 24: the measurement tools at small sizes, in this process
+TOOL_STEPS = 16         # bench_all's and the step anatomy's steps a run
+TOOL_ASMC_STEPS = 8     # bench_asmc_simple's steps a run (usv-asmc-simple: ~65-110 ms a step)
+TOOL_UNROLLS = (1, 4)
+TOOL_PPO_N_STEPS = 128  # bench_train --algo ppo at 64 envs: the rollout depth, cut from 2048
+TOOL_CROSSOVER = (64,)  # each batch runs throughput for 3 x 2048 steps (~35 s)
+TOOL_LOOP_STEPS = 200
+TOOL_SCALING_STEPS = 64
+TOOL_LIVE_WIDTHS = (64, 1024, 2048)  # the crossover's and bench_train's widths, timed on live states
+POP_SWEEP_FLAGS = ("--seeds", "2", "--total-steps", "64", "--num-envs", "8", "--buffer-size", "128",
+                   "--learning-starts", "16", "--rounds-per-block", "1")
 REPEATS = 3
 ATOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s and
@@ -510,37 +542,12 @@ def check_batched_env_against_cpu(device, env_id, sensor_from, **overrides):
     return worst
 
 
-def profiled(fn, calls):
-    """Device kernels, aten calls and device ms per call of ``fn`` over
-    ``calls`` calls (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(kernels, "the profiler saw no device activity")
-    return {"device_kernels": len(kernels) / calls,
-            "aten_calls": sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / calls,
-            "device_ms": sum(e.device_time for e in kernels) / 1e3 / calls}
-
-
 def step_anatomy(benv, state, wall_ms, steps=20):
-    """Kernels and device time of one auto-reset step of ``benv`` at its
-    width (torch.profiler over ``steps`` steps) against the unprofiled wall
-    time. Returns the figures per step."""
-    actions = torch.zeros((benv.num_envs, benv.cfg.action_dim), device=benv.device)
-    box = [state]
+    """``usv_tpu_torch.timing.step_anatomy``, printed: one auto-reset step's
+    kernels and device time against the unprofiled wall time."""
+    from usv_tpu_torch.timing import step_anatomy as run
 
-    def step():
-        box[0], _ = benv.step(box[0], actions)
-
-    a = profiled(step, steps)
-    a.update(wall_ms=wall_ms, idle_share=1 - a["device_ms"] / wall_ms)
+    a = run(benv, state, wall_ms, steps)
     print(f"  per step: {a['device_kernels']:.0f} device kernels, {a['aten_calls']:.0f} aten op calls, "
           f"device busy {a['device_ms']:.4f} ms of {wall_ms:.4f} ms wall (idle share "
           f"{a['idle_share']:.3f})", flush=True)
@@ -993,7 +1000,7 @@ def learner_anatomy(fn, calls):
     """Wall ms per call of ``fn`` by CUDA events (unprofiled), then its aten
     calls, device kernels and device time per call over the same number of
     calls (torch.profiler), and the device's idle share."""
-    from usv_tpu_torch.timing import time_cuda
+    from usv_tpu_torch.timing import profiled, time_cuda
 
     wall_ms = time_cuda(fn, calls)
     a = profiled(fn, calls)
@@ -1780,6 +1787,7 @@ def gym_surface(device, card, rc):
     from usv_tpu_torch import compat
     from usv_tpu_torch.control.aitsmc import AitsmcGains
     from usv_tpu_torch.envs import make
+    from usv_tpu_torch.timing import profiled
     from usv_tpu_torch.vector import BatchedEnv
 
     short = {"max_episode_steps": GYM_EPISODE}
@@ -2778,6 +2786,185 @@ def ppo_study(device, card, rc, tmp, time_shape):
         card_vs_cpu=gaps)}, max_err, row
 
 
+def measurement_tools(device, card, rc, time_shape, tmp):
+    """Phase 24: each ported measurement tool's ``main`` (and the three
+    examples') in this process at a small size, on the card by default. Gates:
+    every printed or written record has the keys the CPU tests hold against
+    the JAX scripts (the tools' ``*_KEYS``) and JAX's ``env``/``config``/
+    ``mode`` labels, and ``device`` is the card's line; the kernel launches
+    of each call equal the count its code implies (none for
+    ``bench_policy``, none for an ``ignore_obstacles`` step). Then the
+    kernel against its plain version on ``usv-simple``'s live state at the
+    crossover's and ``bench_train``'s widths, timed for the kernel table."""
+    import functools
+    from pathlib import Path
+
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.envs.simple import SimpleEnvConfig
+    from usv_tpu_torch.examples import eval_aitsmc, population_sweep, reward_explore
+    from usv_tpu_torch.tools import (bench_all, bench_asmc_simple, bench_policy, bench_step_anatomy,
+                                     bench_train, reference_protocol_bench, scaling_check)
+    from usv_tpu_torch.train import ppo
+    from usv_tpu_torch.vector import BatchedEnv, rollout
+
+    t_start = time.perf_counter()
+    launches, seconds = {}, {}
+
+    def run(name, fn, expected):
+        rc.counter.launches = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t
+        launches[name] = rc.counter.launches
+        check(launches[name] == expected,
+              f"{name}: {launches[name]} kernel launches, expected {expected}")
+        return out
+
+    def keys(label, rec, want):
+        check(set(rec) == set(want), f"{label}: keys {sorted(rec)}, expected {sorted(want)}")
+
+    # bench_all, one family a call: the warm-up and 3 timed runs of TOOL_STEPS
+    # steps; a CA run launches once for its reset and twice a step
+    families = {}
+    for env_id, per_run in (("usv-simple", TOOL_STEPS), ("usv-asmc-ca-v0", 1 + 2 * TOOL_STEPS)):
+        path = Path(tmp) / f"bench_all_{env_id}.json"
+        summary = run(f"bench_all {env_id}", lambda: bench_all.main(
+            ["--steps", str(TOOL_STEPS), "--families", env_id, "--out", str(path)]), 4 * per_run)
+        art = json.loads(path.read_text())
+        check(art == summary, "bench_all: the artifact differs from the summary")
+        # git is left out where the checkout is no git repository
+        check(set(bench_all.ARTIFACT_KEYS) - {"git"} <= set(art) <= set(bench_all.ARTIFACT_KEYS),
+              f"bench_all artifact keys {sorted(art)}")
+        check(art["device"] == card and [f["env"] for f in art["families"]] == [env_id],
+              f"bench_all {env_id}: {art['device']!r}, {art['families']}")
+        keys("bench_all family", art["families"][0], bench_all.FAMILY_KEYS)
+        families[env_id] = art["families"][0]
+
+    # the step anatomy: 7 rows step the env (reset_only does not), a warm-up
+    # and one timed run each; the cost analysis steps raw and auto-reset
+    # 1 + PROFILED_CALLS times each
+    expected = 7 * 2 * TOOL_STEPS + 2 * (1 + bench_step_anatomy.PROFILED_CALLS)
+    anatomy = run("bench_step_anatomy", lambda: bench_step_anatomy.main(
+        ["--steps", str(TOOL_STEPS), "--repeats", "1", "--cost-analysis"]), expected)
+    timed = [r for r in anatomy if "config" in r]
+    costs = [r for r in anatomy if "cost_analysis" in r]
+    check([r["config"] for r in timed] == list(bench_step_anatomy.CONFIGS), "anatomy: its rows")
+    check([r["cost_analysis"] for r in costs] == list(bench_step_anatomy.COST_PROGRAMS),
+          "anatomy: its cost programs")
+    for r in timed:
+        keys("anatomy row", r, bench_step_anatomy.ROW_KEYS)
+    for r in costs:
+        keys("anatomy cost", r, bench_step_anatomy.COST_KEYS)
+        check(r["device_kernels"] > 0 and r["device_ms"] > 0, f"anatomy cost {r}")
+
+    # bench_asmc_simple: the ignore_obstacles rows cast no ray
+    expected = (1 + len(TOOL_UNROLLS)) * 4 * TOOL_ASMC_STEPS
+    asmc = run("bench_asmc_simple", lambda: bench_asmc_simple.main(
+        ["--steps", str(TOOL_ASMC_STEPS), "--unrolls", *map(str, TOOL_UNROLLS)]), expected)
+    check([r["config"] for r in asmc] == [c[0] for c in bench_asmc_simple.configs(TOOL_UNROLLS)],
+          "bench_asmc_simple: its rows")
+    for r in asmc:
+        keys("bench_asmc_simple row", r, bench_asmc_simple.ROW_KEYS)
+    for env_id in ("usv-simple", "usv-asmc-simple", "usv-aitsmc-simple"):
+        run(f"{env_id} ignore_obstacles, 4 steps",
+            lambda: rollout(make(env_id, ignore_obstacles=True), NUM_ENVS, 4, seed=0), 0)
+
+    policy = run("bench_policy", lambda: bench_policy.main(
+        ["--batch", "1", "256", "--chain", "16", "--latency-calls", "10"]), 0)
+    check([r["batch"] for r in policy] == [1, 256], "bench_policy: its rows")
+    for r in policy:
+        keys("bench_policy row", r, bench_policy.ROW_KEYS)
+        check(r["actions_per_s"] > 0, f"bench_policy {r}")
+
+    # bench_train: two SAC modes at the default 2048 envs, 2 warm-up and 2
+    # timed rounds of 8 collect steps; one PPO setting at 64 envs, its
+    # rollout cut to TOOL_PPO_N_STEPS: two collects and two iterations
+    sac = run("bench_train sac", lambda: bench_train.main(
+        ["--rounds", "2", "--modes", "default", "fused"]), 2 * 2 * 2 * 8)
+    check([r["mode"] for r in sac] == ["default", "fused"], "bench_train: its modes")
+    check([r["grad_steps"] for r in sac] == [2 * 2 * 8, 2 * 2 * 1], f"bench_train: {sac}")
+    for r in sac:
+        keys("bench_train sac row", r, bench_train.SAC_KEYS)
+    real_cfg = ppo.PpoConfig
+    ppo.PpoConfig = functools.partial(real_cfg, n_steps=TOOL_PPO_N_STEPS)
+    try:
+        ppo_rows = run("bench_train ppo", lambda: bench_train.main(
+            ["--algo", "ppo", "--envs", "64", "--ppo-batch-sizes", "2048", "--ppo-fusions", "1"]),
+            4 * TOOL_PPO_N_STEPS)
+    finally:
+        ppo.PpoConfig = real_cfg
+    keys("bench_train ppo row", ppo_rows[0], bench_train.PPO_KEYS)
+    check(ppo_rows[0]["optimizer_steps_per_iter"] == 10 * (TOOL_PPO_N_STEPS * 64 // 2048),
+          f"bench_train ppo: {ppo_rows[0]}")
+
+    # the crossover, its record kept out of docs/artifacts: a batch runs 20
+    # warm-up and TOOL_LOOP_STEPS loop steps, then throughput's 3 runs of 2048
+    real_artifact = reference_protocol_bench.ARTIFACT
+    reference_protocol_bench.ARTIFACT = Path(tmp) / "protocol.json"
+    try:
+        crossover = run("reference_protocol_bench crossover", lambda: reference_protocol_bench.main(
+            ["--side", "crossover", "--batches", *map(str, TOOL_CROSSOVER),
+             "--steps", str(TOOL_LOOP_STEPS)]),
+            len(TOOL_CROSSOVER) * (20 + TOOL_LOOP_STEPS + 3 * 2048))
+    finally:
+        reference_protocol_bench.ARTIFACT = real_artifact
+    keys("crossover record", crossover, reference_protocol_bench.CROSSOVER_KEYS)
+    check(crossover["device"] == card and [r["batch"] for r in crossover["rows"]] == list(TOOL_CROSSOVER),
+          f"crossover: {crossover}")
+    for r in crossover["rows"]:
+        keys("crossover row", r, reference_protocol_bench.CROSSOVER_ROW_KEYS)
+
+    # scaling_check at size 1 (one card): a warm-up and a timed run
+    scaling = run("scaling_check", lambda: scaling_check.main(
+        ["--envs-per-device", "512", "--steps", str(TOOL_SCALING_STEPS)]), 2 * TOOL_SCALING_STEPS)
+    check(scaling["device"] == card and [r["devices"] for r in scaling["scaling"]] ==
+          [d for d in (1, 2, 4, 8) if d <= torch.cuda.device_count()], f"scaling_check: {scaling}")
+    for r in scaling["scaling"]:
+        keys("scaling row", r, scaling_check.ROW_KEYS)
+
+    # the examples: one launch an aitsmc step (its reset casts no ray); the
+    # reward curves on the card equal the CPU's; the sweep's one block of 8
+    # collect steps and its 200-step eval, each one batch of the 2 seeds' envs
+    summary = run("eval_aitsmc", lambda: eval_aitsmc.main(
+        ["--out", os.path.join(tmp, "aitsmc"), "--steps", "32", "--perturb"]), 32)
+    check(math.isfinite(summary["mean_reward_per_step"])
+          and os.path.exists(os.path.join(tmp, "aitsmc", "diagnostics.json")), f"eval_aitsmc {summary}")
+    curves = run("reward_explore", lambda: reward_explore.main(["--out", os.path.join(tmp, "rs.png")]), 0)
+    cpu_curves = reward_explore.reward_curves(SimpleEnvConfig(), torch.device("cpu"))
+    curve_err = max(float(np.abs(np.subtract(c["y"], cpu_curves[k]["y"])).max()) for k, c in curves.items())
+    check(curve_err <= 1e-6, f"reward_explore: card against CPU {curve_err}")
+    sweep = run("population_sweep", lambda: population_sweep.main(
+        [*POP_SWEEP_FLAGS, "--out", os.path.join(tmp, "sweep.json"), "--export-best",
+         os.path.join(tmp, "sweep_best")]), 8 + 200)
+    check(sweep["device"] == card and len(sweep["blocks"]) == 1 and "exported" in sweep, f"sweep {sweep}")
+
+    # the kernel on usv-simple's live state at the crossover's and
+    # bench_train's widths: a reset and the crossover loop's 220 steps
+    rows, max_err = [], 0.0
+    for B in TOOL_LIVE_WIDTHS:
+        handle = make("usv-simple")
+        benv = BatchedEnv(handle, B)
+        state, _ = benv.reset(0)
+        zeros = torch.zeros((B, 2), device=device)
+        for _ in range(20 + TOOL_LOOP_STEPS):
+            state, _ = benv.step(state, zeros)
+        max_err = max(max_err, check_kernel_on_live_state("usv-simple", handle.cfg, state.env))
+        live_args, live_bd = live_scene("usv-simple", handle.cfg, state.env)
+        row = time_shape(f"usv-simple at {B} envs (the measurement tools), its live state after "
+                         f"{20 + TOOL_LOOP_STEPS} steps,", live_args, live_bd, live_args[3])
+        rows.append(row)
+    total = time.perf_counter() - t_start
+    print(f"  launches by call {launches}; seconds by call "
+          f"{ {k: round(v, 2) for k, v in seconds.items()} }; bench_all {families}; "
+          f"phase {total:.1f} s on {card}", flush=True)
+    return {"measurement_tools": dict(
+        seconds=total, seconds_by_call=seconds, launches=launches, bench_all=families,
+        step_anatomy=anatomy, asmc_simple=asmc, policy=policy, train=sac + ppo_rows,
+        crossover=crossover["rows"], scaling=scaling["scaling"], eval_aitsmc=summary,
+        reward_curve_card_vs_cpu=curve_err, population_sweep=sweep["blocks"])}, max_err, rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -3005,6 +3192,12 @@ def main():
         max_err = max(max_err, live_err)
         other_rows.append(ppo_study_row)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        phase("measurement tools: bench_*, scaling_check, reference_protocol_bench, the examples")
+        tools_record, live_err, tools_rows = measurement_tools(device, card, rc, time_shape, tmp)
+        max_err = max(max_err, live_err)
+        other_rows += tools_rows
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -3050,6 +3243,7 @@ def main():
         **policy_record,
         **study_record,
         **ppo_study_record,
+        **tools_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

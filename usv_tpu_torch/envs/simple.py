@@ -114,8 +114,16 @@ def n_uniform(cfg: SimpleEnvConfig) -> int:
 def _sensor_sweep(cfg: SimpleEnvConfig, state: SimpleEnvState):
     """Boundary distances + raycast — reference :203-226.
 
-    Returns (min boundary distance (B,), per-ray distances (B, R)).
+    Returns (min boundary distance (B,), per-ray distances (B, R)). With
+    ``ignore_obstacles`` nothing is cast: JAX computes the ray-cast and
+    overwrites it, and XLA drops the unused result; eager torch would launch
+    it all the same.
     """
+    if cfg.ignore_obstacles:
+        # reference :222-224: distances forced clear
+        B, dtype, device = state.position.shape[0], state.position.dtype, state.position.device
+        return (torch.ones((B,), dtype=dtype, device=device),
+                torch.full((B, cfg.sensor_count), cfg.sensor_max_range, dtype=dtype, device=device))
     n = state.obs_xy - state.position[:, None, :2]
     boundary = torch.hypot(n[..., 0], n[..., 1]) - state.obs_r
     dist = sensor_raycast(
@@ -124,9 +132,6 @@ def _sensor_sweep(cfg: SimpleEnvConfig, state: SimpleEnvState):
         strict_compat=cfg.strict_compat_raycast,
         backend=cfg.raycast_backend,
     )
-    if cfg.ignore_obstacles:
-        # reference :222-224: distances forced clear
-        return torch.ones_like(dist[:, 0]), torch.full_like(dist, cfg.sensor_max_range)
     return torch.where(state.obs_mask, boundary, math.inf).amin(-1), dist
 
 

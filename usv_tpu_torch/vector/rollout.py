@@ -18,15 +18,11 @@ from typing import Callable, Optional
 import torch
 
 from usv_tpu_torch.envs.registry import EnvHandle
+from usv_tpu_torch.timing import synchronize
 from usv_tpu_torch.utils.seeding import derived_seed, new_generator
 from usv_tpu_torch.vector.batch import BatchedEnv
 
 POLICY_TAG = 23  # the policy's generator: derived_seed(seed, POLICY_TAG)
-
-
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def rollout(handle: EnvHandle, num_envs: int, n_steps: int, seed: int = 0,
@@ -93,13 +89,13 @@ def throughput(handle: EnvHandle, num_envs: int, n_steps: int = 10_000, repeats:
 
     def run(seed):
         out = rollout(handle, num_envs, n_steps, seed=seed, policy_fn=policy_fn, **batch_options)
-        _sync(device)
+        synchronize(device)
         return float(out[2])  # reward_sum: the result is consumed
 
     run(0)  # warm-up: kernel build and load, allocator, first launches
     best = float("inf")
     for i in range(repeats):
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         run(i + 1)
         best = min(best, time.perf_counter() - t0)
