@@ -548,9 +548,10 @@ def step_anatomy(benv, state, wall_ms, steps=20):
     from usv_tpu_torch.timing import step_anatomy as run
 
     a = run(benv, state, wall_ms, steps)
+    idle = ", ".join(f"{k} {v:.4f}" for k, v in a["idle_by_span"].items())
     print(f"  per step: {a['device_kernels']:.0f} device kernels, {a['aten_calls']:.0f} aten op calls, "
-          f"device busy {a['device_ms']:.4f} ms of {wall_ms:.4f} ms wall (idle share "
-          f"{a['idle_share']:.3f})", flush=True)
+          f"device busy {a['device_ms']:.4f} ms against {wall_ms:.4f} ms unprofiled wall (idle share "
+          f"{a['idle_share']:.3f} of the profiled window; idle ms by span: {idle})", flush=True)
     return a
 
 
@@ -999,17 +1000,22 @@ def policy_serving(device, card, rc):
 def learner_anatomy(fn, calls):
     """Wall ms per call of ``fn`` by CUDA events (unprofiled), then its aten
     calls, device kernels and device time per call over the same number of
-    calls (torch.profiler), and the device's idle share."""
+    calls (torch.profiler), and the device's idle share of that profile."""
     from usv_tpu_torch.timing import profiled, time_cuda
 
     wall_ms = time_cuda(fn, calls)
-    a = profiled(fn, calls)
-    a.update(wall_ms=wall_ms, idle_share=1 - a["device_ms"] / wall_ms)
-    return a
+    return dict(profiled(fn, calls), wall_ms=wall_ms)
 
 
 def per_step(anatomy, steps):
-    return {k: (v if k == "idle_share" else v / steps) for k, v in anatomy.items()}
+    def scaled(k, v):
+        if k == "idle_share":
+            return v
+        if k == "idle_by_span":
+            return {name: ms / steps for name, ms in v.items()}
+        return v / steps
+
+    return {k: scaled(k, v) for k, v in anatomy.items()}
 
 
 def block_rates(logdir):
@@ -2003,11 +2009,9 @@ def dp_sac(mesh):
     digests = _row_digests(ts.buffer, mesh.shards)
     rc.counter.launches = 0
     mesh.traffic.reset()
-    mesh.timed = True
     trace = {}
     learner._update_once(ts, bs, trace=trace)
-    mesh.timed = False
-    traffic = dict(calls=mesh.traffic.calls, bytes=mesh.traffic.bytes, ms=mesh.traffic.seconds * 1e3)
+    traffic = dict(calls=mesh.traffic.calls, bytes=mesh.traffic.bytes)
     grads = [g.cpu() for g in trace["critic"]] + [g.cpu() for g in trace["actor"]]
     first = _params(ts.critic, ts.actor, ts.target_critic)
     mesh.traffic.reset()
@@ -2191,7 +2195,7 @@ def data_parallel(device, card, time_shape):
               f"rank {k}: {t['calls']} collectives, {t['bytes']} bytes in an update")
         sac_rows.append(dict(rank=k, collect_step_ms=s["collect_ms"], update_ms=s["update_ms"],
                              collective_calls=t["calls"], collective_bytes=t["bytes"],
-                             collective_ms=t["ms"], grad_max_abs_diff=diff, grad_max_abs=scale,
+                             grad_max_abs_diff=diff, grad_max_abs=scale,
                              param_diff_first_update=first, param_diff_first_update_firm=firm,
                              param_diff_round_2=after,
                              kernel_max_abs_err=s["kernel_err"]))
@@ -2202,7 +2206,7 @@ def data_parallel(device, card, time_shape):
               f"{first:.3g} anywhere (bound 2 x lr = {2 * lsac['lr']:.3g}), "
               f"{after:.3g} after round 2; {s['collect_ms']:.4f} ms a collect step, {s['update_ms']:.4f} "
               f"ms an update (CUDA events); an update's collectives: {t['calls']} all-reduces, "
-              f"{t['bytes']} bytes, {t['ms']:.3f} ms (device synchronised around each)", flush=True)
+              f"{t['bytes']} bytes", flush=True)
     print(f"  (2) the logical run in this process: {lsac['collect_ms']:.4f} ms a collect step, "
           f"{lsac['update_ms']:.4f} ms an update (1024 envs, batch 1024); the pair's launch took "
           f"{ranks_seconds:.2f} s, the logical runs {logical_seconds:.2f} s, on {card}", flush=True)

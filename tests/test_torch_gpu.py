@@ -11,7 +11,8 @@ CUDA. Run them on a machine with one:
 * The kernel on the tangency scenes of ``tests/test_raycast_pallas.py``
   against the float64 native oracle, with that suite's bounds.
 * The auto-reset step on the card against the same step on the CPU, and one
-  kernel launch per step.
+  kernel launch per step. A CUDA graph's capture counts no launch; each of
+  its replays counts the launches it captured.
 * Each hydrodynamic id's ``BatchedEnv`` on the card: the launch counter moves
   as the step structure predicts (the collision-avoidance reset holds a whole
   step), the plain versions never run, and ``raycast_backend="xla"`` on the
@@ -400,6 +401,25 @@ def test_new_ids_xla_backend_on_card_agrees_with_kernel(cuda, env_id):
     off = (kts.obs[:, sensor_from:] - xts.obs[:, sensor_from:]).abs() > 1e-4
     assert int(off.sum()) * 1000 <= off.numel()
     assert (kts.obs[:, sensor_from:] < 1).any()
+
+
+def test_graph_replays_count_their_captured_launches(cuda):
+    """A capture adds nothing to ``launches``; each replay adds what it
+    captured. ``time_device`` makes one eager warm-up call, then replays
+    ``replays + 1`` times (``time_cuda``'s own warm-up replay)."""
+    from usv_tpu_torch.timing import graphed, time_device
+
+    pos, oxy, orr, mask = _scene(256, 8, 3, cuda)
+    before = counter.launches
+    replay = graphed(lambda: raycast_cuda(pos, oxy, orr, mask, 32, MAXR), calls=3)
+    assert counter.launches == before + 1 and counter.captured == 0  # the warm-up call alone
+    for k in range(1, 5):
+        replay()
+        assert counter.launches == before + 1 + 3 * k
+    torch.cuda.synchronize()
+    before = counter.launches
+    time_device(lambda: raycast_cuda(pos, oxy, orr, mask, 32, MAXR), calls=4, replays=6)
+    assert counter.launches == before + 1 + 4 * (6 + 1)
 
 
 def test_empty_grid_launch_is_not_counted(cuda):

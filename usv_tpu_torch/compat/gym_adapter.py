@@ -49,6 +49,7 @@ from usv_tpu_torch.compat import seed_replay
 from usv_tpu_torch.control.asmc import init_asmc
 from usv_tpu_torch.envs import asmc_ca
 from usv_tpu_torch.envs import make as make_functional
+from usv_tpu_torch.timing import span
 from usv_tpu_torch.utils import viz
 
 
@@ -276,19 +277,23 @@ class GymUsvEnv(gymnasium.Env if _HAS_GYMNASIUM else object):
         return self._step(action)
 
     def _step(self, action, **step_kwargs):
-        h = self.handle
-        action = to_device(np.reshape(action, (1, h.cfg.action_dim)), self.device)
-        self._state, ts = h.step(h.cfg, self._state, action, **step_kwargs)
-        out = _first(to_host({
-            "obs": ts.obs, "reward": ts.reward, "terminated": ts.terminated,
-            "truncated": ts.truncated, "info": ts.info,
-        }, self.device))
-        obs, info = out["obs"], out["info"]
-        reward = float(out["reward"])
-        terminated = bool(out["terminated"])
-        if self.legacy_api:
-            return obs, reward, terminated, info
-        return obs, reward, terminated, bool(out["truncated"]), info
+        with span("usv.gym.step"):
+            h = self.handle
+            action = to_device(np.reshape(action, (1, h.cfg.action_dim)), self.device)
+            with span("usv.env.dynamics"):
+                self._state, ts = h.step(h.cfg, self._state, action, **step_kwargs)
+            with span("usv.gym.to_host"):
+                host = to_host({
+                    "obs": ts.obs, "reward": ts.reward, "terminated": ts.terminated,
+                    "truncated": ts.truncated, "info": ts.info,
+                }, self.device)
+            out = _first(host)
+            obs, info = out["obs"], out["info"]
+            reward = float(out["reward"])
+            terminated = bool(out["terminated"])
+            if self.legacy_api:
+                return obs, reward, terminated, info
+            return obs, reward, terminated, bool(out["truncated"]), info
 
     def render(self):
         frame = self._render_frame()

@@ -20,6 +20,7 @@ from usv_tpu_torch.physics.dynamics import (
     surge_yaw_model_terms,
 )
 from usv_tpu_torch.physics.params import VehicleParams
+from usv_tpu_torch.timing import span
 
 
 def _sig_pow(x, p):
@@ -198,10 +199,11 @@ def aitsmc_compute(
     ctrl, dyn = loop.ctrl, loop.dyn
     records = []
     last = None
-    for _ in range(n_substeps):
-        ctrl, tport, tstbd, last = aitsmc_control(gains, vparams, ctrl, setpoint, dyn.vel, dt)
-        dyn = dynamics_step(vparams, dyn, tport, tstbd, dt, px, py, pz)
-        if keep_history:
-            records.append(last)
+    with span("usv.env.substeps"):
+        for _ in range(n_substeps):
+            ctrl, tport, tstbd, last = aitsmc_control(gains, vparams, ctrl, setpoint, dyn.vel, dt)
+            dyn = dynamics_step(vparams, dyn, tport, tstbd, dt, px, py, pz)
+            if keep_history:
+                records.append(last)
     new = AitsmcLoopState(ctrl=ctrl, dyn=dyn)
     return new, last, (stack_history(records) if keep_history else None)

@@ -29,6 +29,7 @@ from usv_tpu_torch.physics.dynamics import (
     surge_yaw_model_terms,
 )
 from usv_tpu_torch.physics.params import VehicleParams
+from usv_tpu_torch.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,21 +241,22 @@ def asmc_compute(
     ctrl, dyn = loop.ctrl, loop.dyn
     records = []
     last = None
-    for i in range(n_substeps):
-        ctrl, tport, tstbd, debug = asmc_control(
-            gains, vparams, ctrl, u_d, heading_offset, dyn.pose, dyn.vel, dt,
-            absolute_heading=absolute_heading,
-        )
-        if do_perturb:
-            px, py = perturbation_force(
-                dyn.pose[..., 2], (loop.perturb_step + i).to(torch.float32),
-                dt, perturb_freq, perturb_magnitude,
+    with span("usv.env.substeps"):
+        for i in range(n_substeps):
+            ctrl, tport, tstbd, debug = asmc_control(
+                gains, vparams, ctrl, u_d, heading_offset, dyn.pose, dyn.vel, dt,
+                absolute_heading=absolute_heading,
             )
-        else:
-            px = py = 0.0
-        dyn = dynamics_step(vparams, dyn, tport, tstbd, dt, px, py)
-        last = {**debug, "pose": dyn.pose, "vel": dyn.vel}
-        if keep_history:
-            records.append(last)
+            if do_perturb:
+                px, py = perturbation_force(
+                    dyn.pose[..., 2], (loop.perturb_step + i).to(torch.float32),
+                    dt, perturb_freq, perturb_magnitude,
+                )
+            else:
+                px = py = 0.0
+            dyn = dynamics_step(vparams, dyn, tport, tstbd, dt, px, py)
+            last = {**debug, "pose": dyn.pose, "vel": dyn.vel}
+            if keep_history:
+                records.append(last)
     new = AsmcLoopState(ctrl=ctrl, dyn=dyn, perturb_step=loop.perturb_step + n_substeps)
     return new, last, (stack_history(records) if keep_history else None)

@@ -25,6 +25,7 @@ from typing import Callable, Optional
 import torch
 
 from usv_tpu_torch.envs.types import TimeStep, tree_map
+from usv_tpu_torch.timing import span
 
 
 def _select(done, new, old):
@@ -78,12 +79,16 @@ def make_autoreset_step(
         generator: Optional[torch.Generator] = None,
         uniform: Optional[torch.Tensor] = None,
     ):
-        new_state, ts = step_fn(cfg, state, action)
+        with span("usv.env.dynamics"):
+            new_state, ts = step_fn(cfg, state, action)
         done = ts.done
-        fresh = reset_from_uniform_fn(
-            cfg, _draw(uniform, generator, done.shape[0], n_uniform, done.device))
-        out_state = _select(done, fresh, new_state)
-        obs = torch.where(done[:, None], reset_obs_fn(cfg, fresh), ts.obs)
+        with span("usv.env.reset"):
+            fresh = reset_from_uniform_fn(
+                cfg, _draw(uniform, generator, done.shape[0], n_uniform, done.device))
+            fresh_obs = reset_obs_fn(cfg, fresh)
+        with span("usv.env.select"):
+            out_state = _select(done, fresh, new_state)
+            obs = torch.where(done[:, None], fresh_obs, ts.obs)
         return out_state, _timestep(ts, obs)
 
     return auto_step
@@ -133,18 +138,21 @@ def make_pooled_autoreset_step(
         generator: Optional[torch.Generator] = None,
         uniform: Optional[torch.Tensor] = None,
     ):
-        new_state, ts = step_fn(cfg, state, action)
+        with span("usv.env.dynamics"):
+            new_state, ts = step_fn(cfg, state, action)
         done = ts.done
         pooled = F < num_envs and int(done.sum()) <= F
         rows = F if pooled else num_envs
-        fresh = reset_from_uniform_fn(cfg, _draw(uniform, generator, rows, n_uniform, done.device))
-        fresh_obs = reset_obs_fn(cfg, fresh)
-        if pooled:
-            idx = torch.clamp(torch.cumsum(done, dim=0) - 1, 0, F - 1)
-            fresh = tree_map(lambda leaf: leaf.index_select(0, idx), fresh)
-            fresh_obs = fresh_obs.index_select(0, idx)
-        out_state = _select(done, fresh, new_state)
-        obs = torch.where(done[:, None], fresh_obs, ts.obs)
+        with span("usv.env.reset"):
+            fresh = reset_from_uniform_fn(cfg, _draw(uniform, generator, rows, n_uniform, done.device))
+            fresh_obs = reset_obs_fn(cfg, fresh)
+        with span("usv.env.select"):
+            if pooled:
+                idx = torch.clamp(torch.cumsum(done, dim=0) - 1, 0, F - 1)
+                fresh = tree_map(lambda leaf: leaf.index_select(0, idx), fresh)
+                fresh_obs = fresh_obs.index_select(0, idx)
+            out_state = _select(done, fresh, new_state)
+            obs = torch.where(done[:, None], fresh_obs, ts.obs)
         return out_state, _timestep(ts, obs)
 
     return auto_step

@@ -48,21 +48,10 @@ import torch
 
 from usv_tpu_torch import _build
 from usv_tpu_torch.ops.raycast import DEFAULT_SPAN, FIRST_RAY, ray_table
+from usv_tpu_torch.timing import counter
 
 # the kernel's dynamic shared memory without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
-
-
-class LaunchCounter:
-    """Kernel launches made by :func:`raycast_cuda`: a plain integer that a
-    caller may reset, raised by one where the kernel launches and nowhere
-    else."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-counter = LaunchCounter()
 
 
 MAX_N_ACC = 4  # the kernel's instances (kMaxAcc in csrc/raycast.cu)
@@ -207,7 +196,7 @@ def raycast_cuda(
         )
     if err != 0:
         raise RuntimeError(f"raycast kernel launch failed: CUDA error {err}")
-    counter.launches += 1
+    counter.launched()
     return out
 
 

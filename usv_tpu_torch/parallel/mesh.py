@@ -21,9 +21,7 @@ Here a mesh of ``n`` shards is one of two things:
   width a rank runs it, so that a logical run and a run on ranks compute the
   same rows bit for bit. Its collectives are identities.
 
-Every collective adds its calls and bytes to :attr:`EnvMesh.traffic` (and,
-with ``timed``, the host seconds it took, the device synchronised around
-it).
+Every collective adds its calls and bytes to :attr:`EnvMesh.traffic`.
 
 JAX's ``batch_sharding``/``replicated_sharding`` return ``NamedSharding``
 layout tags that XLA reads; nothing here reads a tag, so they have no
@@ -33,7 +31,6 @@ counterpart: :func:`shard_env_batch` and :func:`replicate` do the placing.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence
 
 import torch
@@ -47,10 +44,9 @@ class Traffic:
     """What the mesh's collectives moved since the last :meth:`reset`."""
     calls: int = 0
     bytes: int = 0
-    seconds: float = 0.0  # host time inside the collectives, when the mesh is timed
 
     def reset(self) -> None:
-        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.calls, self.bytes = 0, 0
 
 
 class EnvMesh:
@@ -65,7 +61,6 @@ class EnvMesh:
         self.group = group
         self.backend = None if group is None else dist.get_backend(group)
         self.traffic = Traffic()
-        self.timed = False
 
     def __repr__(self):
         kind = "logical" if self.logical else f"rank {self.rank}, {self.backend}"
@@ -98,15 +93,9 @@ class EnvMesh:
     # ------------------------------------------------------------ collectives
 
     def _run(self, flat: torch.Tensor, collective) -> None:
-        if self.timed and flat.is_cuda:
-            torch.cuda.synchronize(flat.device)
-        t0 = time.perf_counter()
         collective(flat)
-        if self.timed and flat.is_cuda:
-            torch.cuda.synchronize(flat.device)
         self.traffic.calls += 1
         self.traffic.bytes += flat.numel() * flat.element_size()
-        self.traffic.seconds += time.perf_counter() - t0
 
     def _flat_call(self, tensors: Sequence[torch.Tensor], collective) -> List[torch.Tensor]:
         """One collective per dtype over the tensors flattened into one buffer

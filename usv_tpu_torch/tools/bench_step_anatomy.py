@@ -34,7 +34,10 @@ the read is the sync that ends the clock. One warm-up run, then the best of
 prints, for one step of ``raw_step``, ``autoreset_step`` and ``reset_only``,
 the aten calls, device kernels and device ms by ``torch.profiler``
 (``usv_tpu_torch.timing.profiled``): the inputs to the roofline in PERF.md.
-On the CPU the device figures are ``null``.
+Beside them, the device's idle share of the profiled window and the table of
+that idle time, ms a step, by the program's span open on the host in each
+gap (``idle_by_span``: ``usv.env.dynamics``, ``usv.env.reset``, ...). On the
+CPU the device figures are ``null``.
 
 Usage (on the card unless ``--device`` names another)::
 
@@ -61,7 +64,8 @@ CONFIGS = ("raw", "autoreset", "select_only", "reset_only", "autoreset_rewardsum
            "autoreset_obs_carry", "bench_exact", "bench_nokeys")
 COST_PROGRAMS = ("raw_step", "autoreset_step", "reset_only")
 ROW_KEYS = ("config", "env", "ignore_obstacles", "ms_per_batched_step", "steps_per_second")
-COST_KEYS = ("cost_analysis", "device_kernels", "aten_calls", "device_ms")
+COST_KEYS = ("cost_analysis", "device_kernels", "aten_calls", "device_ms", "idle_share",
+             "idle_by_span")
 PROFILED_CALLS = 10  # one-step calls under the profiler for --cost-analysis
 
 

@@ -95,6 +95,7 @@ from usv_tpu_torch.train.common import (
     take_adam,
     take_rows,
 )
+from usv_tpu_torch.timing import span
 from usv_tpu_torch.vector.batch import BatchedEnv, BatchState
 
 EVAL_TAG, WATCH_TAG = 7, 13  # JAX's fold_in(ts.key, 7) and fold_in(ts.key, 13)
@@ -531,11 +532,13 @@ class SacLearner:
                              f"{mesh.size}: re-lay it first (buffer_reshard_local)")
         rewards = []
         for _ in range(n_rounds):
-            ts, reward_sum = self._env_cycle(ts)
+            with span("usv.sac.collect"):
+                ts, reward_sum = self._env_cycle(ts)
             rewards.append(reward_sum)
             if self.fill(ts) >= min(cfg.learning_starts, cfg.buffer_size):
                 for _ in range(self.updates_per_round()):
-                    self._update_once(ts, batch_size=self._fusion * cfg.batch_size)
+                    with span("usv.sac.update"):
+                        self._update_once(ts, batch_size=self._fusion * cfg.batch_size)
         total = torch.stack(rewards).sum()
         return ts, (mesh.all_sum([total])[0] if mesh is not None else total)
 

@@ -20,6 +20,7 @@ from usv_tpu_torch.envs.autoreset import (
     make_pooled_autoreset_step,
 )
 from usv_tpu_torch.envs.registry import EnvHandle
+from usv_tpu_torch.timing import span
 from usv_tpu_torch.utils.guards import make_sanitized_step
 from usv_tpu_torch.vector.frames import init_frames, push_frames
 
@@ -109,9 +110,10 @@ class BatchedEnv:
              generator: Optional[torch.Generator] = None,
              uniform: Optional[torch.Tensor] = None):
         """One auto-resetting step of every env -> ``(BatchState, TimeStep)``."""
-        env_state, ts = self._auto_step(
-            state.env, actions, self.generator if generator is None else generator, uniform)
-        frames = state.frames
-        if self.frame_stack:
-            frames = push_frames(frames, ts.obs, ts.done)
-        return BatchState(env=env_state, frames=frames), ts
+        with span("usv.env.step"):
+            env_state, ts = self._auto_step(
+                state.env, actions, self.generator if generator is None else generator, uniform)
+            frames = state.frames
+            if self.frame_stack:
+                frames = push_frames(frames, ts.obs, ts.done)
+            return BatchState(env=env_state, frames=frames), ts
