@@ -166,8 +166,10 @@ version on the card. Phases, each of which exits non-zero on failure:
     seed of the highest selection mean, the recorded selection eval
     replayed bit for bit, and the winner bundle scored by ``bundle_eval`` on
     the card and on the CPU (16 envs x 200 steps, each eval seed; the CPU
-    fed the card's reset draws through two ids registered with
-    ``usv-simple``'s functions) within 5e-3 on ``reward_per_step``, or, where
+    fed the card's reset draws, drawn again on the card from the eval's
+    seed and held to be its draws by the card's eval fed them, through an id
+    registered with ``usv-simple``'s functions) within 5e-3 on
+    ``reward_per_step``, or, where
     it misses, every env that parts doing so at a tangency ray: the same
     eval stepped on both sides in lockstep, each env's action, obs, reward
     and done within 1e-4 until one side's sensor ray (one or two) grazes an
@@ -213,6 +215,14 @@ version on the card. Phases, each of which exits non-zero on failure:
     within 1e-6. Then the kernel against its plain version on
     ``usv-simple``'s live state at 64, 1024 and 2048 envs (the crossover's
     and ``bench_train``'s widths), timed in the ``kernels`` line.
+25. the graphed step: ``BatchedEnv``'s full-width step, replayed from its
+    CUDA graph, against the eager auto-reset step (``make_autoreset_step``
+    on the same functions) on ``usv-simple`` and ``usv-asmc-ca-v0`` at 4096
+    envs: one step from one state and one generator state bit for bit, then
+    the wall ms a step of each in turns (200 steps a run on ``usv-simple``,
+    20 on the CA env, best of 2), ``timing.env_step_counter`` (every
+    ``BatchedEnv`` step replayed, none eager) and the kernel's launches a
+    step on both sides (1 and 2).
 
 Every phase heading prints the seconds since the script started.
 
@@ -2523,28 +2533,55 @@ def key_tree(x):
     return None
 
 
-def reset_draw_ids(suffix):
-    """Two ids with ``usv-simple``'s functions: the first keeps a host copy
-    of every reset block it is handed, the second is handed those blocks in
-    turn in place of its own draws. Returns ``(recording id, replaying id,
-    blocks, the blocks replayed so far)``."""
+def eval_reset_blocks(device, seed, steps, episodes):
+    """The reset blocks ``bundle_eval(..., seed=seed)`` draws on the card,
+    on the host: ``batch_policy_metrics`` seeds its batch's generator with
+    ``seed + 1``, and its reset and each of its ``steps`` steps draw one
+    ``(episodes, n_uniform)`` block from it."""
+    from usv_tpu_torch.envs import make
+
+    h = make("usv-simple", device=device)
+    width = h.n_uniform(h.cfg)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    return [torch.rand((episodes, width), generator=g, dtype=torch.float32, device=device).cpu()
+            for _ in range(steps + 1)]
+
+
+def replaying_id(suffix, blocks):
+    """An id with ``usv-simple``'s functions that is handed ``blocks`` in
+    turn in place of its own draws. Returns ``(id, the blocks replayed so
+    far)``. (It runs on the CPU, where each reset is an eager call: on the
+    card a graphed step calls the family's functions only at its capture.)"""
     from usv_tpu_torch.envs import register, simple
 
-    blocks, replayed = [], []
-
-    def recording(cfg, u):
-        blocks.append(u.cpu())
-        return simple.reset_from_uniform(cfg, u)
+    replayed = []
 
     def replaying(cfg, u):
         replayed.append(blocks[len(replayed)])
         return simple.reset_from_uniform(cfg, replayed[-1].to(u.device))
 
-    ids = (f"smoke/usv-simple-recorded-{suffix}", f"smoke/usv-simple-replayed-{suffix}")
-    for env_id, fn in zip(ids, (recording, replaying)):
-        register(env_id, simple.SimpleEnvConfig, fn, simple.n_uniform, simple.step,
-                 simple.reset_obs, reset_info=simple.reset_info)
-    return ids[0], ids[1], blocks, replayed
+    env_id = f"smoke/usv-simple-replayed-{suffix}"
+    register(env_id, simple.SimpleEnvConfig, replaying, simple.n_uniform, simple.step,
+             simple.reset_obs, reset_info=simple.reset_info)
+    return env_id, replayed
+
+
+def fed_reward_per_step(device, bundle, blocks, steps, episodes):
+    """``batch_policy_metrics``' ``reward_per_step`` of ``bundle`` on the card
+    with its draws replaced by ``blocks``: equal to ``bundle_eval``'s on the
+    card exactly when ``blocks`` are the draws it made."""
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.train.evaluate import metrics_from_sums, run_batch
+    from usv_tpu_torch.train.policy import load_policy
+    from usv_tpu_torch.vector import BatchedEnv
+
+    policy = load_policy(bundle, device=device)
+    benv = BatchedEnv(make("usv-simple", device=device), episodes,
+                      frame_stack=max(1, policy.frame_stack))
+    state, _ = benv.reset(0, uniform=blocks[0].to(device))
+    _, sums = run_batch(benv, state, policy, steps, uniforms=[b.to(device) for b in blocks[1:]])
+    return metrics_from_sums(sums, steps, episodes)["reward_per_step"]
 
 
 def lockstep_partings(device, bundle, blocks, steps, episodes):
@@ -2610,14 +2647,18 @@ def bundle_eval_card_vs_cpu(device, bundle, recorded, steps, suffix):
 
     gaps = []
     for es, want in enumerate(recorded):
-        recorded_id, replayed_id, blocks, replayed = reset_draw_ids(f"{suffix}{es}")
-        on_card = bundle_eval(recorded_id, bundle, steps=steps, seed=es)
+        on_card = bundle_eval("usv-simple", bundle, steps=steps, seed=es)
+        check(round(on_card["reward_per_step"], 4) == want["reward_per_step"],
+              f"eval seed {es}: bundle_eval on the card {on_card} against the artifact's {want}")
+        blocks = eval_reset_blocks(device, es, steps, 16)
+        fed = fed_reward_per_step(device, bundle, blocks, steps, 16)
+        check(fed == on_card["reward_per_step"],
+              f"eval seed {es}: the card fed the blocks reads {fed}, its own draws "
+              f"{on_card['reward_per_step']}: the blocks are not the card's draws")
+        replayed_id, replayed = replaying_id(f"{suffix}{es}", blocks)
         on_cpu = bundle_eval(replayed_id, bundle, steps=steps, seed=es, device="cpu")
         check(len(replayed) == len(blocks) == steps + 1,
               f"eval seed {es}: {len(blocks)} reset blocks drawn, {len(replayed)} replayed")
-        # the recording id draws what usv-simple draws: the artifact's score
-        check(round(on_card["reward_per_step"], 4) == want["reward_per_step"],
-              f"eval seed {es}: bundle_eval on the card {on_card} against the artifact's {want}")
         gap = abs(on_card["reward_per_step"] - on_cpu["reward_per_step"])
         partings, first, worst = lockstep_partings(device, bundle, blocks, steps, 16)
         print(f"  eval seed {es}: bundle_eval reward_per_step card {on_card['reward_per_step']:.6f}, "
@@ -2969,6 +3010,83 @@ def measurement_tools(device, card, rc, time_shape, tmp):
         reward_curve_card_vs_cpu=curve_err, population_sweep=sweep["blocks"])}, max_err, rows
 
 
+GRAPH_STEPS = {"usv-simple": 200, "usv-asmc-ca-v0": 20}  # phase 25: steps a timed run
+
+
+def graphed_step(device, card, rc):
+    """Phase 25: the graphed full-width step against the eager one."""
+    import dataclasses
+
+    from usv_tpu_torch.envs import make
+    from usv_tpu_torch.envs.autoreset import make_autoreset_step
+    from usv_tpu_torch.timing import env_step_counter
+    from usv_tpu_torch.vector import BatchedEnv
+
+    def bits(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree.contiguous().reshape(-1).view(torch.uint8)]
+        if isinstance(tree, dict):
+            return [b for k in sorted(tree) for b in bits(tree[k])]
+        if dataclasses.is_dataclass(tree):
+            return [b for f in dataclasses.fields(tree) for b in bits(getattr(tree, f.name))]
+        return []
+
+    record = {}
+    for env_id, steps in GRAPH_STEPS.items():
+        h = make(env_id)
+        benv = BatchedEnv(h, NUM_ENVS)
+        eager = make_autoreset_step(h.cfg, h.step, h.reset_from_uniform, h.reset_obs,
+                                    h.n_uniform(h.cfg))
+        state, _ = benv.reset(0)
+        actions = torch.zeros((NUM_ENVS, h.cfg.action_dim), device=device)
+        for _ in range(4):
+            state, _ = benv.step(state, actions)
+        drawn_from = benv.generator.get_state()
+        got = benv.step(state, actions)
+        g = torch.Generator(device=device)
+        g.set_state(drawn_from)
+        want = eager(state.env, actions, g)
+        same = all(torch.equal(a, b) for a, b in zip(bits((got[0].env, got[1])), bits(want)))
+        check(same and torch.equal(g.get_state(), benv.generator.get_state()),
+              f"{env_id}: the graphed step differs from the eager step")
+        box, ebox = [got[0]], [want[0]]
+
+        def run_graphed():
+            for _ in range(steps):
+                box[0] = benv.step(box[0], actions)[0]
+
+        def run_eager():
+            for _ in range(steps):
+                ebox[0] = eager(ebox[0], actions, benv.generator)[0]
+
+        row = {"graphed_ms": [], "eager_ms": []}
+        for _ in range(2):
+            for key, run in (("graphed_ms", run_graphed), ("eager_ms", run_eager)):
+                env_step_counter.replayed = env_step_counter.eager = 0
+                rc.counter.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                row[key].append((time.perf_counter() - t0) / steps * 1e3)
+                per_step = rc.counter.launches / steps
+                counted = (env_step_counter.replayed, env_step_counter.eager)
+                want_count = (steps, 0) if key == "graphed_ms" else (0, 0)
+                check(counted == want_count, f"{env_id} {key}: env_step_counter {counted}, "
+                                             f"expected {want_count}")
+                check(per_step == (2 if env_id == "usv-asmc-ca-v0" else 1),
+                      f"{env_id} {key}: {per_step} kernel launches a step")
+                row[key.replace("_ms", "_launches_per_step")] = per_step
+        graphed, eager_ms = min(row["graphed_ms"]), min(row["eager_ms"])
+        print(f"  {env_id} at {NUM_ENVS} envs: graphed {graphed:.4f} ms a step, eager "
+              f"{eager_ms:.4f} ms ({eager_ms / graphed:.2f}x, best of 2 runs of {steps} steps) on "
+              f"{card}; bit for bit one step; env_step_counter replayed {steps}, eager 0 a graphed "
+              f"run; {row['graphed_launches_per_step']:.0f} kernel launches a step on both sides",
+              flush=True)
+        record[env_id] = row
+    return {"graphed_step": record}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
@@ -3202,6 +3320,9 @@ def main():
         max_err = max(max_err, live_err)
         other_rows += tools_rows
 
+    phase("graphed step: usv-simple, usv-asmc-ca-v0, graphed against eager")
+    graphed_record = graphed_step(device, card, rc)
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -3248,6 +3369,7 @@ def main():
         **study_record,
         **ppo_study_record,
         **tools_record,
+        **graphed_record,
     }
     print(card)
     print(json.dumps({"kernels": [record]}))

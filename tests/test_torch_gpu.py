@@ -13,6 +13,12 @@ CUDA. Run them on a machine with one:
 * The auto-reset step on the card against the same step on the CPU, and one
   kernel launch per step. A CUDA graph's capture counts no launch; each of
   its replays counts the launches it captured.
+* ``BatchedEnv``'s graphed full-width step against the eager auto-reset step
+  on the same inputs, for every registered id, bit for bit across auto-reset
+  waves: from the batch's generator and from ``uniform`` blocks with a frame
+  stack, the generator left where the eager step leaves it, the launches
+  counted as the eager step's, nothing returned overwritten by later
+  replays, the input state untouched, and one replay counted a step.
 * Each hydrodynamic id's ``BatchedEnv`` on the card: the launch counter moves
   as the step structure predicts (the collision-avoidance reset holds a whole
   step), the plain versions never run, and ``raycast_backend="xla"`` on the
@@ -40,7 +46,7 @@ import numpy as np
 import pytest
 import torch
 
-from usv_tpu_torch.envs import make
+from usv_tpu_torch.envs import make, registered_ids
 from usv_tpu_torch.envs import simple
 from usv_tpu_torch.envs.autoreset import make_autoreset_step
 from usv_tpu_torch.ops.raycast_cuda import counter, raycast_cuda, raycast_cuda_reference
@@ -422,6 +428,95 @@ def test_graph_replays_count_their_captured_launches(cuda):
     assert counter.launches == before + 1 + 4 * (6 + 1)
 
 
+# overrides that end episodes inside the 14 steps of the graphed-step test:
+# two TimeLimit waves, or (legacy ids, no step limit) a cross-track bound
+_GRAPH_SHORT = {"usv-asmc-v0": dict(max_ye=0.05), "usv-pid-v0": dict(max_ye=0.05),
+                "usv-asmc-ye-int-v0": dict(max_ye=0.05)}
+
+
+def _tensors(tree):
+    """Every tensor of a state, a TimeStep, a BatchState or a list of them,
+    dicts by key."""
+    import dataclasses
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in _tensors(getattr(tree, f.name))]
+    return []
+
+
+def _assert_bitwise(got, want):
+    """Same dtypes, shapes and bits (a NaN equals itself, -0 is not +0)."""
+    got, want = _tensors(got), _tensors(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        bits = [x.contiguous().reshape(-1).view(torch.uint8) for x in (g, w)]
+        assert torch.equal(*bits)
+
+
+@pytest.mark.parametrize("form", ["generator", "uniform_stack5"])
+@pytest.mark.parametrize("env_id", registered_ids())
+def test_graphed_step_equals_the_eager_step(cuda, env_id, form):
+    """The graphed full-width step of ``BatchedEnv`` against the eager
+    auto-reset step (``make_autoreset_step``) called on the same state,
+    actions and draws: every state leaf, obs, reward, flag and info entry
+    (``terminal_observation`` among them) bit for bit, over auto-reset waves;
+    the generator's state after each step; the ray-cast launches a step; the
+    frame stack; a state and TimeStep held across three later steps
+    unchanged; the input state untouched; one replay counted a step."""
+    from usv_tpu_torch.timing import env_step_counter
+    from usv_tpu_torch.vector import BatchedEnv, push_frames
+
+    B, T = 64, 14
+    h = make(env_id, **_GRAPH_SHORT.get(env_id, dict(max_episode_steps=6)))
+    n = h.n_uniform(h.cfg)
+    eager = make_autoreset_step(h.cfg, h.step, h.reset_from_uniform, h.reset_obs, n)
+    stacked = form == "uniform_stack5"
+    benv = BatchedEnv(h, B, frame_stack=5 if stacked else 0)
+    state, _ = benv.reset(11)
+    eager_gen = torch.Generator(device=cuda)
+    eager_gen.set_state(benv.generator.get_state())
+    draws = torch.Generator(device=cuda).manual_seed(12)
+    low = torch.tensor(h.cfg.action_low, device=cuda)
+    high = torch.tensor(h.cfg.action_high, device=cuda)
+    want_state, want_frames = state.env, state.frames
+    held, done_rows = [], 0
+    for t in range(T):
+        actions = low + torch.rand((B, h.cfg.action_dim), generator=draws, device=cuda) * (high - low)
+        uniform = torch.rand((B, n), generator=draws, device=cuda) if stacked else None
+        before = counter.launches
+        want_state, want = eager(want_state, actions, None if stacked else eager_gen, uniform)
+        per_step = counter.launches - before
+        inputs = [x.clone() for x in _tensors(state)]
+        replayed, eager_steps = env_step_counter.replayed, env_step_counter.eager
+        before = counter.launches
+        state_in = state
+        state, ts = benv.step(state, actions, uniform=uniform)
+        assert counter.launches - before == per_step
+        assert (env_step_counter.replayed, env_step_counter.eager) == (replayed + 1, eager_steps)
+        _assert_bitwise(state_in, inputs)  # the input untouched
+        if not stacked:
+            assert torch.equal(benv.generator.get_state(), eager_gen.get_state())
+        _assert_bitwise(state.env, want_state)
+        _assert_bitwise(ts, want)
+        if stacked:
+            want_frames = push_frames(want_frames, want.obs, want.done)
+            _assert_bitwise(state.frames, want_frames)
+        done_rows += int(want.done.sum())
+        held.append((state, ts, [x.clone() for x in _tensors((state, ts))]))
+        if len(held) > 3:  # three later replays wrote nothing a caller holds
+            old_state, old_ts, snapshot = held.pop(0)
+            _assert_bitwise((old_state, old_ts), snapshot)
+    assert done_rows >= 2 * B
+    assert len(benv._graphed.graphs) == 1
+
+
 def test_empty_grid_launch_is_not_counted(cuda):
     from usv_tpu_torch.ops.raycast_cuda import launch_empty_grid
 
@@ -535,6 +630,24 @@ def test_ppo_trains_on_card_with_two_launches_per_ca_collect_step(cuda):
     learner._update(ts, traj, last)
     assert counter.launches == before + 2 * 8  # the update phase launches nothing
     assert ts.opt_steps == 2 * 2 and all(torch.isfinite(p).all() for p in ts.model.parameters())
+
+
+def test_sac_collect_and_ca_rollout_replay_every_env_step(cuda):
+    """SAC's collect (``uniform`` blocks, a frame stack) and a CA rollout (the
+    batch's generator) take every env step through the graph: each counts
+    one replay and none runs eagerly."""
+    from usv_tpu_torch.timing import env_step_counter
+    from usv_tpu_torch.train.sac import SacConfig, SacLearner
+
+    learner = SacLearner(make("usv-simple"), SacConfig(**SAC_SMALL))
+    ts = learner.init(0)
+    env_step_counter.replayed = env_step_counter.eager = 0
+    learner.train_rounds(ts, 3)
+    steps = 3 * SAC_SMALL["train_freq"]
+    assert (env_step_counter.replayed, env_step_counter.eager) == (steps, 0)
+    env_step_counter.replayed = 0
+    rollout(make("usv-asmc-ca-v0"), num_envs=256, n_steps=10)
+    assert (env_step_counter.replayed, env_step_counter.eager) == (10, 0)
 
 
 def test_sac_update_on_card_matches_cpu(cuda):

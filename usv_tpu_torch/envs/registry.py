@@ -50,6 +50,11 @@ def register(env_id: str, config_cls, reset_from_uniform: Callable, n_uniform: C
     state)``, where given, is the post-reset info dict. The counterpart of
     ``usv_tpu.envs.registry.register``, whose ``reset(cfg, key)`` becomes
     the pair ``reset_from_uniform``, ``n_uniform``.
+
+    On the card ``BatchedEnv``'s full-width step replays ``step``,
+    ``reset_from_uniform`` and ``reset_obs`` from a CUDA graph, so they must
+    be device work alone: a host synchronisation in them raises at the
+    capture, and any other host side effect runs once, at the capture.
     """
     _REGISTRY[env_id] = dict(
         config_cls=config_cls,

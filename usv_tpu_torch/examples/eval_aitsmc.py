@@ -39,9 +39,13 @@ def build_parser():
 
 
 def perturb_func(step):
-    """Body-frame (tau_x, tau_y, tau_z) of the notebook's impulse, (B, 3)."""
+    """Body-frame (tau_x, tau_y, tau_z) of the notebook's impulse, (B, 3).
+    The force is a constant made once per device, so that the step that
+    calls this holds no copy from the host (a CUDA graph captures it)."""
+    from usv_tpu_torch.envs.simple import _const
+
     on = ((step > 100) & (step < 150))[:, None]
-    force = torch.tensor([0.0, 10.0, 20.0], dtype=torch.float32, device=step.device)
+    force = _const((0.0, 10.0, 20.0), step.device)
     return torch.where(on, force, torch.zeros_like(force))
 
 

@@ -1,6 +1,7 @@
 """The port's measurement tools: device time of a function on the card, by
 CUDA events; its profile (torch.profiler); the named host spans of the
-program's layers; and the ray-cast kernel's launch counter.
+program's layers; the ray-cast kernel's launch counter; and the counter of
+``BatchedEnv`` steps, replayed from a CUDA graph or run op by op.
 
 Spans. :func:`span` marks a phase of the program (``usv.env.step``,
 ``usv.sac.update``, ...). It does nothing but one check while no profiler
@@ -85,7 +86,8 @@ class LaunchCounter:
     caller may reset, raised by one where the kernel launches and nowhere
     else. A call made while the current stream captures a CUDA graph launches
     nothing: it raises ``captured``, the tally of the graph being captured,
-    which :func:`graphed` adds to ``launches`` at each replay."""
+    which each replay adds to ``launches`` (:func:`graphed`, and the graph
+    of ``BatchedEnv``'s step)."""
 
     def __init__(self):
         self.launches = 0
@@ -100,6 +102,20 @@ class LaunchCounter:
 
 #: the ray-cast kernel's launches (``ops/raycast_cuda.py::raycast_cuda``)
 counter = LaunchCounter()
+
+
+class EnvStepCounter:
+    """``BatchedEnv.step`` calls by how they ran: ``replayed`` from the
+    step's CUDA graph, or ``eager``, op by op on the host. Plain integers
+    that a caller may reset; each step raises exactly one of them."""
+
+    def __init__(self):
+        self.replayed = 0
+        self.eager = 0
+
+
+#: every ``BatchedEnv``'s steps (``vector/batch.py``)
+env_step_counter = EnvStepCounter()
 
 
 def synchronize(device) -> None:
@@ -122,22 +138,36 @@ def time_cuda(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def graphed(fn, calls=1):
-    """``calls`` calls of ``fn`` captured in one CUDA graph, after one call
-    off the default stream as capture requires -> ``replay()``, which
-    launches the graph and adds the ray-cast launches captured in it to
-    ``counter.launches``."""
+def capture(fn, calls=1):
+    """One call of ``fn`` on a side stream, as capture requires (lazy
+    initialisation and caches happen outside the graph), then ``calls``
+    calls of it captured in one CUDA graph on that stream -> ``(graph,
+    launches, out)``: the ray-cast launches captured, which a replay makes,
+    and what the last captured call returned, tensors of the graph's pool
+    that each replay writes anew. The warm-up call's launches count in
+    ``counter.launches``, as any call's."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         fn()
+        counter.captured = 0
+        graph.capture_begin()
+        try:
+            for _ in range(calls):
+                out = fn()
+        finally:
+            graph.capture_end()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    counter.captured = 0
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    per_replay, counter.captured = counter.captured, 0
+    launches, counter.captured = counter.captured, 0
+    return graph, launches, out
+
+
+def graphed(fn, calls=1):
+    """``calls`` calls of ``fn`` captured in one CUDA graph (:func:`capture`)
+    -> ``replay()``, which launches the graph and adds the ray-cast launches
+    captured in it to ``counter.launches``."""
+    graph, per_replay, _ = capture(fn, calls)
 
     def replay():
         graph.replay()
@@ -233,12 +263,14 @@ def profiled(fn, calls, device="cuda"):
 def step_anatomy(benv, state, wall_ms, steps=20):
     """Kernels and device time of one zero-action auto-reset step of the
     ``BatchedEnv`` ``benv`` from ``state`` (torch.profiler over ``steps``
-    steps), the figures of :func:`profiled`, beside the unprofiled wall ms per
-    step ``wall_ms``. The ``idle_share`` is the profiled window's."""
+    steps, after one unprofiled step that captures the step's CUDA graph on
+    the card), the figures of :func:`profiled`, beside the unprofiled wall ms
+    per step ``wall_ms``. The ``idle_share`` is the profiled window's."""
     actions = torch.zeros((benv.num_envs, benv.cfg.action_dim), device=benv.device)
     box = [state]
 
     def step():
         box[0], _ = benv.step(box[0], actions)
 
+    step()
     return dict(profiled(step, steps, benv.device), wall_ms=wall_ms)

@@ -15,12 +15,13 @@ from typing import Optional, Union
 import torch
 
 from usv_tpu_torch.envs.autoreset import (
+    GraphedAutoResetStep,
     default_reset_pool,
     make_autoreset_step,
     make_pooled_autoreset_step,
 )
 from usv_tpu_torch.envs.registry import EnvHandle
-from usv_tpu_torch.timing import span
+from usv_tpu_torch.timing import env_step_counter, span
 from usv_tpu_torch.utils.guards import make_sanitized_step
 from usv_tpu_torch.vector.frames import init_frames, push_frames
 
@@ -57,6 +58,12 @@ class BatchedEnv:
     The generator given to (or made by) :meth:`reset` stays with the batch
     and feeds the resets of later steps, unless a step is handed its own or
     a ``uniform`` block.
+
+    On the card the full-width step replays one CUDA graph per input
+    signature (``envs/autoreset.py::GraphedAutoResetStep``), captured at its
+    first step; the pooled step, CPU tensors, actions that carry autograd
+    history and a step called inside another capture run eagerly.
+    ``timing.env_step_counter`` counts the steps of each kind.
     """
 
     def __init__(self, handle: EnvHandle, num_envs: int, frame_stack: int = 0,
@@ -77,15 +84,13 @@ class BatchedEnv:
 
         n_uniform = handle.n_uniform(self.cfg)
         pool = default_reset_pool(num_envs) if reset_pool is None else reset_pool
+        fns = (self.cfg, step_fn, handle.reset_from_uniform, handle.reset_obs, n_uniform)
+        self._graphed = None
         if pool and pool < num_envs:
-            self._auto_step = make_pooled_autoreset_step(
-                self.cfg, step_fn, handle.reset_from_uniform, handle.reset_obs,
-                n_uniform, num_envs, pool,
-            )
+            self._auto_step = make_pooled_autoreset_step(*fns, num_envs, pool)
         else:
-            self._auto_step = make_autoreset_step(
-                self.cfg, step_fn, handle.reset_from_uniform, handle.reset_obs, n_uniform,
-            )
+            self._auto_step = make_autoreset_step(*fns)
+            self._graphed = GraphedAutoResetStep(*fns)
 
     def reset(self, generator: Union[torch.Generator, int] = 0,
               uniform: Optional[torch.Tensor] = None):
@@ -110,10 +115,21 @@ class BatchedEnv:
              generator: Optional[torch.Generator] = None,
              uniform: Optional[torch.Tensor] = None):
         """One auto-resetting step of every env -> ``(BatchState, TimeStep)``."""
+        generator = self.generator if generator is None else generator
+        if (self._graphed is not None and isinstance(actions, torch.Tensor) and actions.is_cuda
+                and not (actions.requires_grad and torch.is_grad_enabled())
+                and not torch.cuda.is_current_stream_capturing()):
+            # the phases run on the device, so no env span would time anything
+            env_state, ts = self._graphed(state.env, actions, generator, uniform)
+            env_step_counter.replayed += 1
+            return self._batch_state(state, env_state, ts), ts
         with span("usv.env.step"):
-            env_state, ts = self._auto_step(
-                state.env, actions, self.generator if generator is None else generator, uniform)
-            frames = state.frames
-            if self.frame_stack:
-                frames = push_frames(frames, ts.obs, ts.done)
-            return BatchState(env=env_state, frames=frames), ts
+            env_state, ts = self._auto_step(state.env, actions, generator, uniform)
+            env_step_counter.eager += 1
+            return self._batch_state(state, env_state, ts), ts
+
+    def _batch_state(self, state, env_state, ts):
+        frames = state.frames
+        if self.frame_stack:
+            frames = push_frames(frames, ts.obs, ts.done)
+        return BatchState(env=env_state, frames=frames)
