@@ -1021,7 +1021,7 @@ def per_step(anatomy, steps):
     def scaled(k, v):
         if k == "idle_share":
             return v
-        if k == "idle_by_span":
+        if k in ("idle_by_span", "span_ms"):
             return {name: ms / steps for name, ms in v.items()}
         return v / steps
 

@@ -8,7 +8,9 @@ the CPU at small shapes.
   that raises closes all the same.
 * The phases fire where the program runs them: one ``BatchedEnv.step``
   (full-width and pooled, ``usv-simple`` and ``usv-asmc-ca-v0``), one SAC
-  round, one gymnasium ``step``.
+  round, one gymnasium ``step``; ``usv-curved-aitsmc``'s PCHIP work opens
+  ``usv.env.path`` inside the step's dynamics and its reset, and the step's
+  anatomy reports it apart from the controller's substeps.
 * The idle gaps of a profiled window are put down to the innermost span open
   at their middle (:func:`idle_by_span`), and :func:`profiled` reports them.
 * The launch counter puts a launch made during a CUDA graph's capture into
@@ -107,6 +109,45 @@ def test_batched_step_fires_each_env_phase(env_id, pool):
     step = totals["usv.env.step"]
     children = sum(totals[k]["total_ms"] for k in ENV_SPANS[1:])
     assert step["self_ms"] == pytest.approx(step["total_ms"] - children, abs=1e-9)
+
+
+@pytest.mark.parametrize("pool", [0, 2], ids=["full_width", "pooled"])
+def test_curved_path_span_opens_inside_dynamics_and_reset(pool):
+    benv = BatchedEnv(make("usv-curved-aitsmc", device="cpu"), 4, reset_pool=pool)
+    state, _ = benv.reset(0)
+    _, totals, events = traced(lambda: benv.step(state, torch.zeros((4, 2))))
+    # one in the step (the lookahead target and ye), two in the reset (the
+    # fit with the obstacles' abscissae, the reset observation)
+    assert counts(totals) == {**dict.fromkeys(ENV_SPANS, 1), "usv.env.substeps": 1,
+                              "usv.env.path": 3}
+    ranges = {name: [(e.time_range.start, e.time_range.end) for e in events if e.name == name]
+              for name in ("usv.env.path", "usv.env.dynamics", "usv.env.reset")}
+
+    def inside(span, parent):
+        return any(a <= span[0] and span[1] <= b for a, b in ranges[parent])
+
+    assert sum(inside(p, "usv.env.dynamics") for p in ranges["usv.env.path"]) == 1
+    assert sum(inside(p, "usv.env.reset") for p in ranges["usv.env.path"]) == 2
+
+
+def test_curved_step_without_a_profiler_records_no_span():
+    benv = BatchedEnv(make("usv-curved-aitsmc", device="cpu"), 4)
+    state, _ = benv.reset(0)
+    benv.step(state, torch.zeros((4, 2)))
+    assert timing.span_totals() == {}
+
+
+def test_step_anatomy_reports_the_path_apart_from_the_substeps():
+    from usv_tpu_torch.tools import bench_step_anatomy
+
+    rows = bench_step_anatomy.main(["--env", "usv-curved-aitsmc", "--envs", "4", "--steps", "2",
+                                    "--repeats", "1", "--cost-analysis", "--device", "cpu"])
+    cost = {r["cost_analysis"]: r["span_ms"] for r in rows if "cost_analysis" in r}
+    assert set(cost["raw_step"]) == {"usv.env.path", "usv.env.substeps"}
+    assert set(cost["reset_only"]) == {"usv.env.path"}
+    assert set(cost["autoreset_step"]) >= {"usv.env.path", "usv.env.substeps", "usv.env.dynamics",
+                                           "usv.env.reset", "usv.env.select"}
+    assert all(ms > 0 for spans in cost.values() for ms in spans.values())
 
 
 def test_sac_round_fires_collect_once_and_each_update():

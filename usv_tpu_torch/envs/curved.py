@@ -51,7 +51,12 @@ from usv_tpu_torch.envs.types import TimeStep, reset_from_generator
 from usv_tpu_torch.ops.dispatch import sensor_raycast
 from usv_tpu_torch.physics.dynamics import DynamicsState
 from usv_tpu_torch.physics.params import VehicleParams
+from usv_tpu_torch.timing import span
 from usv_tpu_torch.utils.path_gen import PchipPath, pchip_eval, pchip_fit
+
+#: the span around the PCHIP work: the fit and the obstacles' abscissae in a
+#: reset, the lookahead target and ``ye`` in a step and a reset observation
+PATH_SPAN = "usv.env.path"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,18 +152,19 @@ def build_from_draws(cfg: CurvedEnvConfig, angles, lengths, psi0, base_u, displa
     steps = lengths[..., None] * torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)
     steps = torch.cat([torch.zeros_like(steps[:, :1]), steps[:, 1:]], dim=1)
     waypoints = torch.cumsum(steps, dim=1)
-    # strictly increasing x is required for the interpolant: cos(angle) > 0
-    # by the clip above, so the cumulative x is monotone
-    path = pchip_fit(waypoints[..., 0], waypoints[..., 1])
+    with span(PATH_SPAN):
+        # strictly increasing x is required for the interpolant: cos(angle) > 0
+        # by the clip above, so the cumulative x is monotone
+        path = pchip_fit(waypoints[..., 0], waypoints[..., 1])
+        # obstacles jittered along the path (path_gen.py:17-38 semantics)
+        x_first, x_last = waypoints[:, 0, 0:1], waypoints[:, -1, 0:1]
+        base_x = base_u * (x_last - x_first) + x_first
+        on_path = torch.stack([base_x, pchip_eval(path, base_x)], dim=-1)
 
     # randomized start: at the first waypoint with heading jitter
     pose = torch.stack([waypoints[:, 0, 0], waypoints[:, 0, 1], psi0], dim=-1)
 
-    # obstacles jittered along the path (path_gen.py:17-38 semantics)
-    x_first, x_last = waypoints[:, 0, 0:1], waypoints[:, -1, 0:1]
-    base_x = base_u * (x_last - x_first) + x_first
     displacement = cfg.obs_pos_std * displacement
-    on_path = torch.stack([base_x, pchip_eval(path, base_x)], dim=-1)
     obs_xy = on_path + displacement[..., None] * torch.stack(
         [torch.cos(off_angle), torch.sin(off_angle)], dim=-1)
     obs_r = cfg.obs_rad_mean + cfg.obs_rad_std * obs_r
@@ -216,16 +222,22 @@ def _lookahead_target(cfg: CurvedEnvConfig, state: CurvedEnvState):
     return torch.stack([x, pchip_eval(state.path, x)], dim=-1)
 
 
-def _observe(cfg: CurvedEnvConfig, state: CurvedEnvState, target, angle=None, ye=None):
-    """The (B, 9 + R) observation; ``angle`` and ``ye`` when the caller has
-    them already (the step computes both for the reward)."""
+def _on_path(cfg: CurvedEnvConfig, state: CurvedEnvState):
+    """The lookahead target (B, 2) and the cross-track error ``ye`` (B,) of
+    the boat's pose, inside the path span."""
+    with span(PATH_SPAN):
+        pose = state.dyn.pose
+        return _lookahead_target(cfg, state), pchip_eval(state.path, pose[:, 0]) - pose[:, 1]
+
+
+def _observe(cfg: CurvedEnvConfig, state: CurvedEnvState, target, ye, angle=None):
+    """The (B, 9 + R) observation; ``angle`` when the caller has it already
+    (the step computes it for the reward)."""
     pose, vel = state.dyn.pose, state.dyn.vel
     delta = target - pose[:, :2]
     if angle is None:
         angle = wrap_angle(torch.atan2(delta[:, 1], delta[:, 0]) - pose[:, 2])
     dist = torch.hypot(delta[:, 0], delta[:, 1])
-    if ye is None:
-        ye = pchip_eval(state.path, pose[:, 0]) - pose[:, 1]
     return torch.cat([
         vel / 10.0,
         torch.stack([
@@ -238,7 +250,7 @@ def _observe(cfg: CurvedEnvConfig, state: CurvedEnvState, target, angle=None, ye
 
 
 def reset_obs(cfg: CurvedEnvConfig, state: CurvedEnvState):
-    return _observe(cfg, state, _lookahead_target(cfg, state))
+    return _observe(cfg, state, *_on_path(cfg, state))
 
 
 def step(
@@ -277,10 +289,9 @@ def step(
     )
     state = state.replace(ctrl=loop.ctrl, dyn=loop.dyn, sensor_dist=sensor_dist)
 
-    target = _lookahead_target(cfg, state)
+    target, ye = _on_path(cfg, state)
     delta = target - pose[:, :2]
     angle = wrap_angle(torch.atan2(delta[:, 1], delta[:, 0]) - pose[:, 2])
-    ye = pchip_eval(state.path, pose[:, 0]) - pose[:, 1]
 
     # a row with no valid obstacle has the minimum +inf: no collision
     collision = torch.where(state.obs_mask, boundary, math.inf).amin(-1) < 0.05
@@ -305,7 +316,7 @@ def step(
     truncated = step_count >= cfg.max_episode_steps
 
     state = state.replace(last_setpoint=setpoint_vals, step_count=step_count)
-    obs = _observe(cfg, state, target, angle, ye)
+    obs = _observe(cfg, state, target, ye, angle)
     info = {
         "position": pose,
         "velocity": vel,

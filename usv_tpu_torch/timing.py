@@ -216,14 +216,24 @@ def idle_by_span(busy, spans, lo, hi) -> dict:
     return out
 
 
+def _span_ms(before, calls) -> dict:
+    """Host ms a call inside each span closed since ``before`` (what
+    :func:`span_totals` read then), the longest first."""
+    ms = {name: (t["total_ms"] - before.get(name, {}).get("total_ms", 0.0)) / calls
+          for name, t in span_totals().items()}
+    return {k: v for k, v in sorted(ms.items(), key=lambda kv: -kv[1]) if v > 0}
+
+
 def profiled(fn, calls, device="cuda"):
     """Aten calls, device kernels and device ms per call of ``fn`` over
     ``calls`` calls (torch.profiler), the device's ``idle_share`` of the
     profiled window (between its two synchronizes) and that idle time in ms
     per call by the innermost ``usv.*`` span open on the host in each gap
-    (``idle_by_span``, :func:`idle_by_span`). On the CPU only the aten calls
-    are counted; the device figures are ``None``. Raises if a CUDA run shows
-    the profiler no device activity."""
+    (``idle_by_span``, :func:`idle_by_span`: ``usv.env.dynamics``,
+    ``usv.env.substeps``, ``usv.env.path``, ``usv.env.reset``, ...), and
+    each span's host ms per call (``span_ms``). On the CPU only the aten
+    calls and the spans are counted; the device figures are ``None``.
+    Raises if a CUDA run shows the profiler no device activity."""
     import warnings
 
     from torch.profiler import ProfilerActivity, profile
@@ -231,6 +241,7 @@ def profiled(fn, calls, device="cuda"):
     cuda = torch.device(device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     synchronize(device)
+    before = span_totals()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
         with profile(activities=activities) as prof:
@@ -238,10 +249,11 @@ def profiled(fn, calls, device="cuda"):
                 for _ in range(calls):
                     fn()
                 synchronize(device)
+    span_ms = _span_ms(before, calls)
     aten = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::")) / calls
     if not cuda:
         return {"device_kernels": None, "aten_calls": aten, "device_ms": None,
-                "idle_share": None, "idle_by_span": None}
+                "idle_share": None, "idle_by_span": None, "span_ms": span_ms}
     events = prof.events()
     # a record_function range's device side (a span's, the optimizer's) is no kernel
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
@@ -257,7 +269,8 @@ def profiled(fn, calls, device="cuda"):
     return {"device_kernels": len(kernels) / calls, "aten_calls": aten,
             "device_ms": sum(e.device_time for e in kernels) / 1e3 / calls,
             "idle_share": sum(idle.values()) / (hi - lo),
-            "idle_by_span": {k: v / 1e3 / calls for k, v in sorted(idle.items(), key=lambda kv: -kv[1])}}
+            "idle_by_span": {k: v / 1e3 / calls for k, v in sorted(idle.items(), key=lambda kv: -kv[1])},
+            "span_ms": span_ms}
 
 
 def step_anatomy(benv, state, wall_ms, steps=20):

@@ -36,8 +36,11 @@ the aten calls, device kernels and device ms by ``torch.profiler``
 (``usv_tpu_torch.timing.profiled``): the inputs to the roofline in PERF.md.
 Beside them, the device's idle share of the profiled window and the table of
 that idle time, ms a step, by the program's span open on the host in each
-gap (``idle_by_span``: ``usv.env.dynamics``, ``usv.env.reset``, ...). On the
-CPU the device figures are ``null``.
+gap (``idle_by_span``: ``usv.env.dynamics``, ``usv.env.substeps``,
+``usv.env.path``, ``usv.env.reset``, ...), and each span's host ms a step
+(``span_ms``), so that an eager step of ``usv-curved-aitsmc`` shows its PCHIP
+work (``usv.env.path``) apart from its controller substeps. On the CPU the
+device figures are ``null``.
 
 Usage (on the card unless ``--device`` names another)::
 
@@ -65,7 +68,7 @@ CONFIGS = ("raw", "autoreset", "select_only", "reset_only", "autoreset_rewardsum
 COST_PROGRAMS = ("raw_step", "autoreset_step", "reset_only")
 ROW_KEYS = ("config", "env", "ignore_obstacles", "ms_per_batched_step", "steps_per_second")
 COST_KEYS = ("cost_analysis", "device_kernels", "aten_calls", "device_ms", "idle_share",
-             "idle_by_span")
+             "idle_by_span", "span_ms")
 PROFILED_CALLS = 10  # one-step calls under the profiler for --cost-analysis
 
 
