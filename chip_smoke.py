@@ -222,11 +222,20 @@ version on the card. Phases, each of which exits non-zero on failure:
     the wall ms a step of each in turns (200 steps a run on ``usv-simple``,
     20 on the CA env, best of 2), ``timing.env_step_counter`` (every
     ``BatchedEnv`` step replayed, none eager) and the kernel's launches a
-    step on both sides (1 and 2).
+    step on both sides (1 and 2), and the ASMC substep kernel's (0 and 2);
+26. the ASMC substep kernel (``csrc/asmc_substeps.cu``) alone: its
+    registers and spills (``-Xptxas -v``, from phase 2's build), then at
+    4096 envs and at one, on a state warmed by 50 random-action steps, one
+    call bit for bit against the loop of tensor ops it replaces, and the
+    device ms of a 10-substep call at 32, 64 and 128 threads a block beside
+    that loop's, eager and replayed from a CUDA graph, and its bytes' bound.
+    It has no Pallas counterpart: the JAX package leaves this loop to XLA's
+    fusion of ``lax.scan``.
 
 Every phase heading prints the seconds since the script started.
 
-The line before the last is a JSON ``kernels`` record; the last line is
+The line before the last is a JSON ``kernels`` record (the ray-cast's, then
+the substep kernel's); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -312,6 +321,12 @@ PEAK_F32_PER_S = 67e12
 # meets the obstacle's disc: every other pair is a miss whatever its numbers.
 OPS_PER_PAIR = 14
 OPS_PER_SLOT = 8
+# phase 26: the substep kernel's widths, its block sizes tried, and its bytes
+# a env: the 22 state floats, the action's 2 and the int32 counter in; the
+# 29 floats (state and the last substep's 7) and the counter out
+SUBSTEP_WIDTHS = (4096, 1)
+SUBSTEP_THREADS = (32, 64, 128)
+SUBSTEP_BYTES_PER_ENV = (22 + 2 + 1) * 4 + (29 + 1) * 4
 # The data sheet's float32 peak counts a fused multiply-add as two. The
 # kernel's operations are unfused (-fmad=false), one issue slot each: a kernel
 # that evaluates every valid pair cannot go under this ceiling.
@@ -3019,7 +3034,7 @@ def graphed_step(device, card, rc):
 
     from usv_tpu_torch.envs import make
     from usv_tpu_torch.envs.autoreset import make_autoreset_step
-    from usv_tpu_torch.timing import env_step_counter
+    from usv_tpu_torch.timing import env_step_counter, substep_counter
     from usv_tpu_torch.vector import BatchedEnv
 
     def bits(tree):
@@ -3063,7 +3078,7 @@ def graphed_step(device, card, rc):
         for _ in range(2):
             for key, run in (("graphed_ms", run_graphed), ("eager_ms", run_eager)):
                 env_step_counter.replayed = env_step_counter.eager = 0
-                rc.counter.launches = 0
+                rc.counter.launches = substep_counter.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 run()
@@ -3076,15 +3091,109 @@ def graphed_step(device, card, rc):
                                              f"expected {want_count}")
                 check(per_step == (2 if env_id == "usv-asmc-ca-v0" else 1),
                       f"{env_id} {key}: {per_step} kernel launches a step")
+                substeps = substep_counter.launches / steps
+                check(substeps == (2 if env_id == "usv-asmc-ca-v0" else 0),
+                      f"{env_id} {key}: {substeps} substep kernel launches a step")
                 row[key.replace("_ms", "_launches_per_step")] = per_step
+                row[key.replace("_ms", "_substep_launches_per_step")] = substeps
         graphed, eager_ms = min(row["graphed_ms"]), min(row["eager_ms"])
         print(f"  {env_id} at {NUM_ENVS} envs: graphed {graphed:.4f} ms a step, eager "
               f"{eager_ms:.4f} ms ({eager_ms / graphed:.2f}x, best of 2 runs of {steps} steps) on "
               f"{card}; bit for bit one step; env_step_counter replayed {steps}, eager 0 a graphed "
-              f"run; {row['graphed_launches_per_step']:.0f} kernel launches a step on both sides",
-              flush=True)
+              f"run; {row['graphed_launches_per_step']:.0f} kernel launches a step on both sides, "
+              f"{row['graphed_substep_launches_per_step']:.0f} of the substep kernel", flush=True)
         record[env_id] = row
     return {"graphed_step": record}
+
+
+def substep_kernel(device, card, report):
+    """Phase 26: the ASMC substep kernel alone, against its loop of tensor ops."""
+    from usv_tpu_torch.control import asmc
+    from usv_tpu_torch.ops import asmc_cuda
+    from usv_tpu_torch.physics.params import VehicleParams
+    from usv_tpu_torch.timing import substep_counter, time_cuda, time_device
+
+    ((entry, regs, stores, loads),) = report
+    print(f"  {entry}: {regs} registers, {stores} B spill stores, {loads} B spill loads")
+    gains, vp = asmc.AsmcGains(), VehicleParams()
+    constants = (gains, vp, 0.01, 10.0, 5.0)
+    check(asmc_cuda.THREADS in SUBSTEP_THREADS, f"THREADS {asmc_cuda.THREADS} is not timed")
+
+    def bits(tree):
+        return [t.reshape(-1).clone(memory_format=torch.contiguous_format).view(torch.uint8)
+                for t in leaves(tree)]
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in leaves(v)]
+        if dataclasses.is_dataclass(tree):
+            return [t for f in dataclasses.fields(tree) for t in leaves(getattr(tree, f.name))]
+        return []
+
+    rows = []
+    for B in SUBSTEP_WIDTHS:
+        g = torch.Generator(device=device)
+        g.manual_seed(B)
+
+        def action():
+            u = torch.rand((B, 2), generator=g, device=device)
+            return torch.stack([u[:, 0] * 3.0 - 0.5, (u[:, 1] * 2.0 - 1.0) * math.pi], -1)
+
+        loop = asmc.init_asmc_loop(batch_shape=(B,), device=device)
+        for _ in range(50):
+            loop, _, _ = asmc.asmc_compute(gains, vp, loop, action(), absolute_heading=True)
+        a = action()
+        launches = substep_counter.launches
+        got = asmc.asmc_compute(gains, vp, loop, a, absolute_heading=True)
+        want = asmc._asmc_compute_ops(gains, vp, loop, a, absolute_heading=True)
+        same = all(torch.equal(x, y) for x, y in zip(bits(got[:2]), bits(want[:2])))
+        check(same and substep_counter.launches == launches + 1,
+              f"B={B}: the kernel differs from the loop of tensor ops")
+        ctrl = [getattr(loop.ctrl, f) for f in asmc_cuda.CTRL_FIELDS]
+        dyn = [loop.dyn.pose, loop.dyn.vel, loop.dyn.accel_last, loop.dyn.eta_dot_last]
+        row = {"B": B}
+        for threads in SUBSTEP_THREADS:
+            row[f"ms_{threads}_threads"] = time_device(
+                lambda threads=threads: asmc_cuda.asmc_substeps_cuda(
+                    ctrl, dyn, loop.perturb_step, a, constants, 10, True, False, threads))
+        row["ms"] = row[f"ms_{asmc_cuda.THREADS}_threads"]
+
+        def ops():
+            asmc._asmc_compute_ops(gains, vp, loop, a, absolute_heading=True)
+
+        row["eager_ops_ms"] = time_cuda(ops, 3)
+        row["graphed_ops_ms"] = time_device(ops, calls=1, replays=5)
+        row["bound_ms"] = B * SUBSTEP_BYTES_PER_ENV / PEAK_BYTES_PER_S * 1e3
+        threads_ms = ", ".join(f"{t} threads {row[f'ms_{t}_threads']:.5f}" for t in SUBSTEP_THREADS)
+        print(f"  B={B}: bit for bit against the loop of tensor ops; a 10-substep call "
+              f"{threads_ms} ms; the loop of tensor ops {row['eager_ops_ms']:.4f} ms eager, "
+              f"{row['graphed_ops_ms']:.4f} ms replayed from a graph; bound "
+              f"{row['bound_ms']:.6f} ms ({B * SUBSTEP_BYTES_PER_ENV} B) on {card}", flush=True)
+        rows.append(row)
+    main_row = rows[0]
+    return {
+        "name": "asmc_substeps",
+        "route": "cuda",
+        "source": "usv_tpu_torch/csrc/asmc_substeps.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "registers": regs,
+        "spill_stores": stores,
+        "spill_loads": loads,
+        "threads": asmc_cuda.THREADS,
+        "ms": main_row["ms"],
+        "kernel_ms": main_row["ms"],
+        "plain_ms": main_row["graphed_ops_ms"],
+        "eager_plain_ms": main_row["eager_ops_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": rows,
+    }
 
 
 def main():
@@ -3110,21 +3219,22 @@ def main():
     t0 = time.perf_counter()
     logs = _build.build(force=True)
     print(f"  built {sorted(logs)} in {time.perf_counter() - t0:.2f} s")
+    reports = {}
     for name, log in logs.items():
-        report = _build.ptxas_report(log)
+        report = reports[name] = _build.ptxas_report(log)
         check(report, f"{name}: no -Xptxas -v report in the build output")
         regs = [r[1] for r in report]
         print(f"  {name}: {len(report)} kernel instances, registers {min(regs)}-{max(regs)}, "
               f"spill stores up to {max(r[2] for r in report)} B, "
               f"spill loads up to {max(r[3] for r in report)} B")
-        # <first hit, defer, fold, angle addition, n_acc 1> with 4 rays and 1 ray a thread
-        for rays in (4, 1):
-            found = [r for r in report if f"Lb1ELb1ELb1ELb1ELi1ELi{rays}E" in r[0]]
-            check(len(found) == 1, f"{name}: {len(found)} default-mode instances with {rays} ray(s) "
-                                   "a thread in the build output")
-            _, n_regs, stores, loads = found[0]
-            print(f"    default mode, {rays} ray(s) a thread: {n_regs} registers, "
-                  f"{stores} B spill stores, {loads} B spill loads")
+    # <first hit, defer, fold, angle addition, n_acc 1> with 4 rays and 1 ray a thread
+    for rays in (4, 1):
+        found = [r for r in reports["raycast"] if f"Lb1ELb1ELb1ELb1ELi1ELi{rays}E" in r[0]]
+        check(len(found) == 1, f"raycast: {len(found)} default-mode instances with {rays} ray(s) "
+                               "a thread in the build output")
+        _, n_regs, stores, loads = found[0]
+        print(f"    raycast default mode, {rays} ray(s) a thread: {n_regs} registers, "
+              f"{stores} B spill stores, {loads} B spill loads")
 
     phase("kernel vs plain version")
     max_err = check_kernel(device)
@@ -3323,6 +3433,9 @@ def main():
     phase("graphed step: usv-simple, usv-asmc-ca-v0, graphed against eager")
     graphed_record = graphed_step(device, card, rc)
 
+    phase("substep kernel: the ASMC loop in one launch, against its loop of tensor ops")
+    substep_record = substep_kernel(device, card, reports["asmc_substeps"])
+
     record = {
         "name": "raycast",
         "route": "cuda",
@@ -3372,7 +3485,7 @@ def main():
         **graphed_record,
     }
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, substep_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

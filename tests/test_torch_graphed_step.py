@@ -90,7 +90,7 @@ def graphs(monkeypatch):
         fn()  # the warm-up call
         graph = StandInGraph(fn, fn())
         made.append(graph)
-        return graph, 0, graph.out
+        return graph, {}, graph.out
 
     monkeypatch.setattr(timing, "capture", capture)
     return made

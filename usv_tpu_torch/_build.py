@@ -5,7 +5,8 @@ interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The library lands in ``build/kernels/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
-``nvcc`` per missing source, all together, and waits for them.
+``nvcc`` per missing source, all together, and waits for them; :func:`load`
+builds every missing library at once, so a cold run waits for ``nvcc`` once.
 
 A machine without ``nvcc``, or a failed build, raises: there is no fallback.
 """
@@ -27,9 +28,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # name -> source under csrc/
-SOURCES = {"raycast": "raycast.cu"}
+SOURCES = {"raycast": "raycast.cu", "asmc_substeps": "asmc_substeps.cu"}
 
-# -fmad=false: see the numerics note in csrc/raycast.cu. No fast math.
+# -fmad=false: see the numerics notes in csrc/*.cu. No fast math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -105,10 +106,12 @@ def ptxas_report(log: str):
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+    """The loaded library of kernel ``name``, built first, together with
+    every other missing library, if it is missing."""
     lib = _loaded.get(name)
     if lib is None:
-        build([name])
+        if not library_path(name).exists():
+            build()
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

@@ -3,8 +3,11 @@
 
 The controller is a pure function ``(gains, vparams, state, setpoints, pose,
 vel) -> (state, tport, tstbd, debug)`` over ``(B,)`` tensors; the combined
-controller+dynamics substep loop (:func:`asmc_compute`) is a Python loop
-where JAX has a ``lax.scan``.
+controller+dynamics substep loop (:func:`asmc_compute`) is, where JAX has a
+``lax.scan``, one launch of the hand-written CUDA kernel
+``csrc/asmc_substeps.cu`` on CUDA float32 tensors, and a Python loop of
+tensor ops (:func:`_asmc_compute_ops`) on every other input: the CPU, other
+dtypes, and a kept history.
 
 Semantics kept from the JAX module (reference ``control/usv_asmc.py:53-244``):
 the sideslip-compensated heading setpoint, the second-order reference filter
@@ -21,6 +24,7 @@ import dataclasses
 import torch
 
 from usv_tpu_torch.core.angles import wrap_angle, wrap_angle_once
+from usv_tpu_torch.ops.asmc_cuda import CTRL_FIELDS, asmc_substeps_cuda
 from usv_tpu_torch.physics.dynamics import (
     DynamicsState,
     dynamics_step,
@@ -208,6 +212,28 @@ def stack_history(records):
     return {k: torch.stack([rec[k] for rec in records], dim=1) for k in records[0]}
 
 
+def _takes_kernel(loop: AsmcLoopState, action, n_substeps, dt, perturb_freq,
+                  perturb_magnitude, keep_history) -> bool:
+    """Whether the inputs are the substep kernel's: CUDA float32 state and
+    action of one batch shape on one card, none of them tracked by autograd
+    (the kernel has no backward), an int32 counter, at least one substep,
+    Python-number constants, no history kept."""
+    if keep_history or n_substeps < 1 or not isinstance(action, torch.Tensor):
+        return False
+    if not all(isinstance(x, (int, float)) for x in (dt, perturb_freq, perturb_magnitude)):
+        return False
+    batch = loop.perturb_step.shape
+    ctrl = [getattr(loop.ctrl, f) for f in CTRL_FIELDS]
+    dyn = [loop.dyn.pose, loop.dyn.vel, loop.dyn.accel_last, loop.dyn.eta_dot_last]
+    shapes = [batch] * len(ctrl) + [batch + (3,)] * len(dyn) + [batch + (2,)]
+    return (action.device.type == "cuda"
+            and loop.perturb_step.dtype == torch.int32
+            and loop.perturb_step.device == action.device
+            and all(isinstance(t, torch.Tensor) and t.dtype == torch.float32
+                    and t.device == action.device and t.shape == shape and not t.requires_grad
+                    for t, shape in zip(ctrl + dyn + [action], shapes)))
+
+
 def asmc_compute(
     gains: AsmcGains,
     vparams: VehicleParams,
@@ -233,7 +259,54 @@ def asmc_compute(
     what no caller reads; eager PyTorch drops nothing, so the history is
     built only on request. ``unroll`` is the scan's unroll factor there; a
     Python loop has none, and the argument is accepted and ignored.
+
+    CUDA float32 inputs without ``keep_history`` run as one launch of the
+    substep kernel (``ops/asmc_cuda.py``), bit for bit the loop of tensor
+    ops that every other input runs (:func:`_asmc_compute_ops`).
     """
+    if not _takes_kernel(loop, action, n_substeps, dt, perturb_freq, perturb_magnitude,
+                         keep_history):
+        return _asmc_compute_ops(gains, vparams, loop, action, do_perturb, n_substeps, dt,
+                                 perturb_freq, perturb_magnitude, absolute_heading, unroll,
+                                 keep_history)
+    with span("usv.env.substeps"):
+        ctrl, dyn, perturb_step, last = asmc_substeps_cuda(
+            [getattr(loop.ctrl, f).contiguous() for f in CTRL_FIELDS],
+            [t.contiguous() for t in (loop.dyn.pose, loop.dyn.vel, loop.dyn.accel_last,
+                                      loop.dyn.eta_dot_last)],
+            loop.perturb_step.contiguous(), action,
+            (gains, vparams, dt, perturb_freq, perturb_magnitude),
+            n_substeps, absolute_heading, bool(do_perturb),
+        )
+    ctrl = AsmcState(**dict(zip(CTRL_FIELDS, ctrl)))
+    dyn = DynamicsState(*dyn)
+    # the keys and order of asmc_control's debug dict
+    debug = {
+        "psi_d": ctrl.psi_d_last, "u_d": action[..., 0], "e_u": ctrl.e_u_last,
+        "e_psi": last["e_psi"], "sigma_u": last["sigma_u"], "sigma_psi": last["sigma_psi"],
+        "ka_u": ctrl.ka_u, "ka_psi": ctrl.ka_psi,
+        "tport": last["tport"], "tstbd": last["tstbd"], "tx": last["tx"], "tz": last["tz"],
+        "pose": dyn.pose, "vel": dyn.vel,
+    }
+    return AsmcLoopState(ctrl=ctrl, dyn=dyn, perturb_step=perturb_step), debug, None
+
+
+def _asmc_compute_ops(
+    gains: AsmcGains,
+    vparams: VehicleParams,
+    loop: AsmcLoopState,
+    action,
+    do_perturb=False,
+    n_substeps: int = 10,
+    dt: float = 0.01,
+    perturb_freq: float = 10.0,
+    perturb_magnitude: float = 5.0,
+    absolute_heading: bool = False,
+    unroll: int = 1,
+    keep_history: bool = False,
+):
+    """:func:`asmc_compute` as a Python loop of tensor ops: every input but
+    the kernel's, and the kernel's reference in the tests on the card."""
     del unroll
     u_d = action[..., 0]
     heading_offset = action[..., 1]

@@ -294,10 +294,11 @@ class _StepGraph:
 
     def capture(self):
         """Warm up and capture :meth:`body` on the static inputs as they
-        stand. Neither counts a ray-cast launch: a step counts its replay's."""
-        launched = timing.counter.launches
+        stand. Neither counts a kernel launch: a step counts its replay's."""
+        launched = [c.launches for c in timing.LAUNCH_COUNTERS]
         self.graph, self.launches, out = timing.capture(self.body)
-        timing.counter.launches = launched
+        for c, n in zip(timing.LAUNCH_COUNTERS, launched):
+            c.launches = n
         new_state, ts, done, fresh, fresh_obs = out
         self.new = tree_leaves(new_state)
         self.fresh = tree_leaves(fresh)
@@ -333,7 +334,7 @@ class _StepGraph:
         if self.graph is None:
             self.capture()
         self.graph.replay()
-        timing.counter.launches += self.launches
+        timing.add_replay(self.launches)
 
         flats, outs = self.out_layout.new(self.u.device)
         for d, f, n, o in zip(self.done, self.fresh, self.new, outs):
@@ -375,7 +376,7 @@ class GraphedAutoResetStep:
     action's, the uniform block's dtype), captured at its first step: a
     warm-up call on a side stream, then the capture. A family step that
     cannot be captured raises there: nothing falls back to the eager step.
-    Ray-cast launches count at each replay, as the eager step's would. Use
+    Kernel launches count at each replay, as the eager step's would. Use
     one stream for a graph's steps.
     """
 

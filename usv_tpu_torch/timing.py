@@ -1,7 +1,8 @@
 """The port's measurement tools: device time of a function on the card, by
 CUDA events; its profile (torch.profiler); the named host spans of the
-program's layers; the ray-cast kernel's launch counter; and the counter of
-``BatchedEnv`` steps, replayed from a CUDA graph or run op by op.
+program's layers; the launch counters of the ray-cast and ASMC substep
+kernels; and the counter of ``BatchedEnv`` steps, replayed from a CUDA graph
+or run op by op.
 
 Spans. :func:`span` marks a phase of the program (``usv.env.step``,
 ``usv.sac.update``, ...). It does nothing but one check while no profiler
@@ -102,6 +103,10 @@ class LaunchCounter:
 
 #: the ray-cast kernel's launches (``ops/raycast_cuda.py::raycast_cuda``)
 counter = LaunchCounter()
+#: the ASMC substep kernel's launches (``ops/asmc_cuda.py::asmc_substeps_cuda``)
+substep_counter = LaunchCounter()
+#: every kernel's counter, which a capture tallies and a replay adds to
+LAUNCH_COUNTERS = (counter, substep_counter)
 
 
 class EnvStepCounter:
@@ -142,16 +147,18 @@ def capture(fn, calls=1):
     """One call of ``fn`` on a side stream, as capture requires (lazy
     initialisation and caches happen outside the graph), then ``calls``
     calls of it captured in one CUDA graph on that stream -> ``(graph,
-    launches, out)``: the ray-cast launches captured, which a replay makes,
-    and what the last captured call returned, tensors of the graph's pool
-    that each replay writes anew. The warm-up call's launches count in
-    ``counter.launches``, as any call's."""
+    launches, out)``: ``{counter: launches}`` of each of
+    ``LAUNCH_COUNTERS``, the kernel launches captured, which a replay makes
+    (:func:`add_replay`), and what the last captured call returned, tensors
+    of the graph's pool that each replay writes anew. The warm-up call's
+    launches count in the counters' ``launches``, as any call's."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.stream(side):
         fn()
-        counter.captured = 0
+        for c in LAUNCH_COUNTERS:
+            c.captured = 0
         graph.capture_begin()
         try:
             for _ in range(calls):
@@ -159,19 +166,28 @@ def capture(fn, calls=1):
         finally:
             graph.capture_end()
     torch.cuda.current_stream().wait_stream(side)
-    launches, counter.captured = counter.captured, 0
+    launches = {}
+    for c in LAUNCH_COUNTERS:
+        launches[c], c.captured = c.captured, 0
     return graph, launches, out
+
+
+def add_replay(launches) -> None:
+    """Count one replay of a graph whose capture tallied ``launches``
+    (``{counter: launches}``, :func:`capture`)."""
+    for c, n in launches.items():
+        c.launches += n
 
 
 def graphed(fn, calls=1):
     """``calls`` calls of ``fn`` captured in one CUDA graph (:func:`capture`)
-    -> ``replay()``, which launches the graph and adds the ray-cast launches
-    captured in it to ``counter.launches``."""
+    -> ``replay()``, which launches the graph and adds the kernel launches
+    captured in it to their counters."""
     graph, per_replay, _ = capture(fn, calls)
 
     def replay():
         graph.replay()
-        counter.launches += per_replay
+        add_replay(per_replay)
 
     return replay
 

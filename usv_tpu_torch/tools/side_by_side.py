@@ -124,7 +124,7 @@ def launch(first_seed, processes, outdir, study_flags, device=None, stop_at=None
     if on_card:
         from usv_tpu_torch import _build
 
-        _build.build(["raycast"])
+        _build.build()  # every kernel once, before the processes load them
     device_flag = [] if device is None else ["--device", device]
     root = str(Path(__file__).resolve().parents[2])  # the checkout holding usv_tpu_torch
     env = dict(os.environ, OMP_NUM_THREADS="1",
