@@ -35,9 +35,9 @@ version on the card. Phases, each of which exits non-zero on failure:
 6. the hydrodynamic paths: each new id's ``BatchedEnv`` at 64 envs on the
    card against the CPU; the collision-avoidance path at 4096 envs (two
    launches per auto-reset step: the step's and the one inside the fresh
-   reset's bootstrap step), its step anatomy, the pooled against the
-   full-width reset, ``frame_stack=5`` with ``sanitize=True``; short
-   full-width runs of ``usv-asmc-simple`` and ``usv-aitsmc-simple``; and the
+   reset's bootstrap step), its step anatomy, the batch's defaults against
+   ``frame_stack=5`` and ``sanitize=True``; short full-width runs of
+   ``usv-asmc-simple`` and ``usv-aitsmc-simple``; and the
    kernel against its plain version on the live states of the three paths;
 7. the curved path: ``usv-curved-aitsmc`` at 64 envs on the card against
    the CPU, then at 4096 envs with one launch per step and none per reset,
@@ -673,14 +673,11 @@ def hydro_paths(device, card, rc):
     benv.generator = torch.Generator(device=device).manual_seed(1)
     anatomy = step_anatomy(benv, BatchState(env=state, frames=None), ca_ms)
 
-    # the batch layer's options against the bare full-width step, in turns and
-    # back (the host's pace drifts by tens of percent within a run). Every
-    # variant launches twice a step: the pool's reset runs its bootstrap step
-    # at width F. The pooled step reads done.sum() back every step.
+    # the batch layer's options against the bare step, in turns and back (the
+    # host's pace drifts by tens of percent within a run). Every variant
+    # launches twice a step.
     variants = {
-        "reset_pool=0": {"reset_pool": 0},
-        "reset_pool=64": {"reset_pool": 64},
-        "reset_pool=512": {"reset_pool": 512},
+        "defaults": {},
         "frame_stack=5": {"frame_stack": 5},
         "sanitize=True": {"sanitize": True},
         "frame_stack=5, sanitize=True": {"frame_stack": 5, "sanitize": True},

@@ -1,5 +1,5 @@
-"""The port's batch layer on the CPU: nested select, pooled auto-reset, frame
-stack, guards, ``BatchedEnv`` and the registry, against ``usv_tpu``.
+"""The port's batch layer on the CPU: nested select, the auto-reset's draw,
+frame stack, guards, ``BatchedEnv`` and the registry, against ``usv_tpu``.
 
 * ``BatchedEnv`` for the four ids, with and without a frame stack, against
   the JAX ``BatchedEnv`` over 10 auto-reset steps at B=8 with staggered
@@ -9,9 +9,10 @@ stack, guards, ``BatchedEnv`` and the registry, against ``usv_tpu``.
   numpy actions, its state evolving on its own: obs, reward, the stacked obs
   and ``terminal_observation`` within 2e-4 (the drift bound of the multi-step
   env tests), done flags equal.
-* The pooled auto-reset equals the full-width one when both are fed the same
-  fresh states, at steps with 0, 1, F and more than F done envs (atol=1e-6:
-  the same float32 ops, on blocks of other heights).
+* A step handed ``uniform`` blocks drawn by ``reset_uniform`` from a twin of
+  the batch's generator equals, bit for bit, the step that draws them
+  itself, at steps with 0, 1, 3 and 4 done envs; a step draws exactly one
+  ``(B, n_uniform)`` block from its generator, and none when handed one.
 * ``push_frames`` against JAX, refilling on done.
 * The guard on a batch where one env diverges: only that env terminates, its
   reward and poisoned leaves are zeroed and ``info["diverged"]`` is set;
@@ -34,8 +35,8 @@ from usv_tpu.utils import guards as jguards
 from usv_tpu.vector import frames as jframes
 from usv_tpu.vector.batch import BatchedEnv as JaxBatchedEnv
 from usv_tpu_torch import envs as tenvs
-from usv_tpu_torch.envs.autoreset import _select, default_reset_pool
-from usv_tpu_torch.envs.types import tree_leaves, tree_map
+from usv_tpu_torch.envs.autoreset import _select
+from usv_tpu_torch.envs.types import reset_uniform, tree_leaves, tree_map
 from usv_tpu_torch.utils import guards as tguards
 from usv_tpu_torch.vector import BatchedEnv, BatchState, frames as tframes, rollout
 
@@ -146,75 +147,62 @@ def test_batched_env_draws_from_its_generator(env_id):
     assert torch.isfinite(outs[0]).all() and state.frames.shape == (4, 2, handle.cfg.obs_dim)
 
 
-def _pool_schedule():
-    """B=8, F=3: no env done at step 0, one at step 1, three (F) at step 2,
-    four (more than F) at step 3."""
+def _done_schedule():
+    """B=8: no env done at step 0, one at step 1, three at step 2, four at
+    step 3."""
     done_at = torch.tensor([2, 3, 1, 3, 2, 3, 3, 2])
     return done_at, [int((done_at == t).sum()) for t in range(4)]
 
 
 @pytest.mark.parametrize("env_id", ["usv-asmc-ca-v0", "usv-aitsmc-simple"])
-def test_pooled_autoreset_equals_full_width(env_id):
-    F, limit = 3, 50
-    done_at, counts = _pool_schedule()
-    assert counts == [0, 1, F, 4]
+def test_uniform_step_equals_generator_step(env_id):
+    limit = 50
+    done_at, counts = _done_schedule()
+    assert counts == [0, 1, 3, 4]
     handle = tenvs.make(env_id, device="cpu", max_episode_steps=limit)
     n = handle.n_uniform(handle.cfg)
-    full = BatchedEnv(handle, B, reset_pool=0)
-    pooled = BatchedEnv(handle, B, reset_pool=F)
-    g = torch.Generator().manual_seed(8)
-    u0 = torch.rand((B, n), generator=g)
-    states = {}
-    for name, benv in (("full", full), ("pooled", pooled)):
-        s, _ = benv.reset(0, uniform=u0)
+    drawn, fed = BatchedEnv(handle, B), BatchedEnv(handle, B)
+    twin = torch.Generator().manual_seed(8)
+    states = {"drawn": drawn.reset(torch.Generator().manual_seed(8))[0],
+              "fed": fed.reset(0, uniform=reset_uniform(twin, B, n, CPU))[0]}
+    for name, s in states.items():
         inner = _inner(s.env)
-        s = BatchState(env=_with_inner(s.env, inner.replace(
+        states[name] = BatchState(env=_with_inner(s.env, inner.replace(
             step_count=(limit - 1 - done_at).to(torch.int32))), frames=None)
-        states[name] = s
     actions = torch.zeros(B, 2)
     for t, count in enumerate(counts):
-        pool_block = torch.rand((B, n), generator=g)
-        full_block = torch.rand((B, n), generator=g)
-        rows = torch.nonzero(done_at == t)[:, 0]
-        if count <= F:
-            # the i-th done env takes pool entry i: give the full-width path
-            # that entry in that env's own row
-            full_block[rows] = pool_block[:count]
-        else:
-            pool_block = full_block  # the pooled step takes the full-width path
-        states["full"], fts = full.step(states["full"], actions, uniform=full_block)
-        states["pooled"], pts = pooled.step(states["pooled"], actions, uniform=pool_block)
-        assert fts.done.tolist() == (done_at == t).tolist(), f"step {t}"
-        assert torch.equal(pts.done, fts.done)
-        torch.testing.assert_close(pts.obs, fts.obs, atol=1e-6, rtol=0)
-        torch.testing.assert_close(pts.info["terminal_observation"],
-                                   fts.info["terminal_observation"], atol=1e-6, rtol=0)
-        for a, b in zip(tree_leaves(states["pooled"].env), tree_leaves(states["full"].env)):
-            if a.is_floating_point():
-                torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
-            else:
-                assert torch.equal(a, b)
+        states["drawn"], dts = drawn.step(states["drawn"], actions)
+        states["fed"], fts = fed.step(states["fed"], actions,
+                                      uniform=reset_uniform(twin, B, n, CPU))
+        assert dts.done.tolist() == (done_at == t).tolist(), f"step {t}"
+        assert torch.equal(fts.done, dts.done)
+        assert torch.equal(fts.obs, dts.obs)
+        assert torch.equal(fts.info["terminal_observation"], dts.info["terminal_observation"])
+        for a, b in zip(tree_leaves(states["fed"].env), tree_leaves(states["drawn"].env)):
+            assert torch.equal(a, b)
         if count:
             # a done env's obs is its fresh episode's reset obs, not the old one's
-            assert not torch.allclose(pts.obs[rows], pts.info["terminal_observation"][rows])
+            rows = torch.nonzero(done_at == t)[:, 0]
+            assert not torch.allclose(dts.obs[rows], dts.info["terminal_observation"][rows])
+    assert torch.equal(drawn.generator.get_state(), twin.get_state())
 
 
-def test_pooled_autoreset_draws_only_the_pool():
-    """With a generator the pooled step draws F rows, the full-width one B:
-    the generator's state after a step tells them apart."""
+def test_a_step_draws_one_block_from_its_generator():
+    """A step advances the batch's generator by one ``(B, n_uniform)``
+    block, as a twin shows; a step handed ``uniform`` draws nothing; the
+    step with neither raises."""
     handle = tenvs.make("usv-asmc-ca-v0", device="cpu")
     n = handle.n_uniform(handle.cfg)
-    after = {}
-    for pool in (0, 2):
-        benv = BatchedEnv(handle, B, reset_pool=pool)
-        state, _ = benv.reset(1)
-        benv.step(state, torch.zeros(B, 2))
-        after[pool] = benv.generator.get_state()
-    g = torch.Generator().manual_seed(1)
-    torch.rand((B, n), generator=g)
-    torch.rand((2, n), generator=g)
-    assert torch.equal(after[2], g.get_state()) and not torch.equal(after[0], after[2])
-    assert default_reset_pool(4096) == 0
+    benv = BatchedEnv(handle, B)
+    state, _ = benv.reset(1)
+    twin = torch.Generator().manual_seed(1)
+    reset_uniform(twin, B, n, CPU)
+    assert torch.equal(benv.generator.get_state(), twin.get_state())
+    state, _ = benv.step(state, torch.zeros(B, 2))
+    block = reset_uniform(twin, B, n, CPU)
+    assert torch.equal(benv.generator.get_state(), twin.get_state())
+    benv.step(state, torch.zeros(B, 2), uniform=block)
+    assert torch.equal(benv.generator.get_state(), twin.get_state())
     with pytest.raises(ValueError, match="generator"):
         BatchedEnv(handle, B)._auto_step(state.env, torch.zeros(B, 2))
 
@@ -302,9 +290,7 @@ def test_rollout_runs_the_new_ids_on_cpu(env_id):
     state, obs, reward_sum, done_count = rollout(handle, num_envs=6, n_steps=7, seed=1)
     assert obs.shape == (6, handle.cfg.obs_dim) and torch.isfinite(obs).all()
     assert torch.isfinite(reward_sum) and int(done_count) >= 12  # truncations at steps 3, 6
-    again = rollout(handle, num_envs=6, n_steps=7, seed=1, frame_stack=2, reset_pool=2)
-    # a wave of 6 done envs exceeds the pool of 2: the full-width path, but
-    # other draws on the steps in between
+    again = rollout(handle, num_envs=6, n_steps=7, seed=1, frame_stack=2)
     assert again[1].shape == obs.shape and int(again[3]) == int(done_count)
 
 
@@ -338,14 +324,16 @@ SHORT_EPISODES = {env_id: ({"max_ye": 1.0} if env_id.endswith("-v0") and "ca" no
                                  "usv-pid-v0", "usv-asmc-ye-int-v0"]}
 
 
-@pytest.mark.parametrize("reset_pool", [0, 2], ids=["full_width", "pooled"])
+@pytest.mark.parametrize("draw", ["generator", "uniform"])
 @pytest.mark.parametrize("env_id", sorted(SHORT_EPISODES))
-def test_every_id_runs_through_batched_env(env_id, reset_pool):
-    """Full-width and pooled auto-reset with ``frame_stack=5`` and
-    ``sanitize=True`` over each id's (nested) state."""
+def test_every_id_runs_through_batched_env(env_id, draw):
+    """The auto-reset with ``frame_stack=5`` and ``sanitize=True`` over each
+    id's (nested) state, its resets drawn from the batch's generator or
+    handed to each step as ``uniform`` blocks from a seeded generator."""
     handle = tenvs.make(env_id, device="cpu", **SHORT_EPISODES[env_id])
     n, d, a = 6, handle.cfg.obs_dim, handle.cfg.action_dim
-    benv = BatchedEnv(handle, n, frame_stack=5, sanitize=True, reset_pool=reset_pool)
+    benv = BatchedEnv(handle, n, frame_stack=5, sanitize=True)
+    blocks = torch.Generator().manual_seed(9)
     state, obs = benv.reset(4)
     assert obs.shape == (n, d) and state.stacked_obs.shape == (n, 5 * d)
     shapes = [tuple(leaf.shape) for leaf in tree_leaves(state.env)]
@@ -354,7 +342,10 @@ def test_every_id_runs_through_batched_env(env_id, reset_pool):
     rng = np.random.default_rng(0)
     for _ in range(7):
         action = torch.from_numpy(rng.uniform(-1, 1, (n, a)).astype(np.float32))
-        state, ts = benv.step(state, action)
+        uniform = None
+        if draw == "uniform":
+            uniform = reset_uniform(blocks, n, handle.n_uniform(handle.cfg), CPU)
+        state, ts = benv.step(state, action, uniform=uniform)
         dones += int(ts.done.sum())
         assert ts.obs.shape == (n, d) and torch.isfinite(ts.obs).all()
         assert not ts.info["diverged"].any()

@@ -49,6 +49,7 @@ import torch
 from usv_tpu_torch.envs import make, registered_ids
 from usv_tpu_torch.envs import simple
 from usv_tpu_torch.envs.autoreset import make_autoreset_step
+from usv_tpu_torch.envs.types import reset_uniform
 from usv_tpu_torch.ops.raycast_cuda import counter, raycast_cuda, raycast_cuda_reference
 from usv_tpu_torch.vector import rollout
 
@@ -352,12 +353,14 @@ _NEW_IDS = {"usv-asmc-ca-v0": (1, 2, 7), "usv-asmc-simple": (0, 1, 15),
             "usv-aitsmc-simple": (0, 1, 15), "usv-curved-aitsmc": (0, 1, 9)}
 
 
-@pytest.mark.parametrize("reset_pool", [0, 4])
+@pytest.mark.parametrize("draw", ["generator", "uniform"])
 @pytest.mark.parametrize("env_id", sorted(_NEW_IDS))
-def test_new_ids_launch_the_kernel_on_card(cuda, monkeypatch, env_id, reset_pool):
+def test_new_ids_launch_the_kernel_on_card(cuda, monkeypatch, env_id, draw):
     """Each new id's ``BatchedEnv`` on the card goes through the kernel (the
     launch counter moves as the step structure predicts) and never through
-    the plain version or the plain torch form, which raise here."""
+    the plain version or the plain torch form, which raise here; its resets
+    drawn from the batch's generator or handed to each step as ``uniform``
+    blocks."""
     from usv_tpu_torch.ops import dispatch, raycast_cuda as rc_module
     from usv_tpu_torch.vector import BatchedEnv
 
@@ -370,14 +373,18 @@ def test_new_ids_launch_the_kernel_on_card(cuda, monkeypatch, env_id, reset_pool
     per_reset, per_step, sensor_from = _NEW_IDS[env_id]
     h = make(env_id, max_episode_steps=3)
     assert h.device.type == "cuda"
-    benv = BatchedEnv(h, 64, frame_stack=2, sanitize=True, reset_pool=reset_pool)
+    benv = BatchedEnv(h, 64, frame_stack=2, sanitize=True)
     before = counter.launches
     state, obs = benv.reset(0)
     assert counter.launches == before + per_reset
     actions = torch.zeros((64, 2), device=cuda)
-    for t in range(4):  # step 3 is a wave of 64 truncations: the full-width path
+    blocks = torch.Generator(device=cuda).manual_seed(9)
+    for t in range(4):  # step 3 is a wave of 64 truncations
+        uniform = None
+        if draw == "uniform":
+            uniform = reset_uniform(blocks, 64, h.n_uniform(h.cfg), cuda)
         before = counter.launches
-        state, ts = benv.step(state, actions)
+        state, ts = benv.step(state, actions, uniform=uniform)
         assert counter.launches == before + per_step
     assert ts.obs.is_cuda and torch.isfinite(ts.obs).all() and torch.isfinite(ts.reward).all()
     sensors = ts.obs[:, sensor_from:]

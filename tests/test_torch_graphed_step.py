@@ -15,8 +15,9 @@ buffer, the copies out.
   the graph last returned, too.
 * One graph per input signature; a capture that fails raises; what a step
   returns saves with ``torch.save``.
-* ``BatchedEnv`` on CPU tensors, and its pooled form, step eagerly: each step
-  raises ``timing.env_step_counter.eager`` by one and builds no graph.
+* ``BatchedEnv`` on CPU tensors steps eagerly, its reset drawn from the
+  generator or handed in as ``uniform``: each step raises
+  ``timing.env_step_counter.eager`` by one and builds no graph.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ import torch
 from usv_tpu_torch import timing
 from usv_tpu_torch.envs import make, registered_ids
 from usv_tpu_torch.envs.autoreset import GraphedAutoResetStep, _Layout, make_autoreset_step
+from usv_tpu_torch.envs.types import reset_uniform
 from usv_tpu_torch.vector import BatchedEnv
 
 B, T = 8, 14
@@ -224,19 +226,22 @@ def test_a_returned_state_and_timestep_save_and_load(graphs):
     assert_bitwise((back["state"], back["ts"]), (state, ts))
 
 
-@pytest.mark.parametrize("pool", [0, 2], ids=["full_width", "pooled"])
-def test_batched_env_on_cpu_steps_eagerly(monkeypatch, pool):
+@pytest.mark.parametrize("draw", ["generator", "uniform"])
+def test_batched_env_on_cpu_steps_eagerly(monkeypatch, draw):
     def refuse(fn, calls=1):
         raise AssertionError("a CUDA graph was captured for CPU tensors")
 
     monkeypatch.setattr(timing, "capture", refuse)
-    benv = BatchedEnv(make("usv-asmc-ca-v0", device="cpu", max_episode_steps=3), 4,
-                      frame_stack=2, reset_pool=pool)
-    assert (benv._graphed is None) == bool(pool)
+    h = make("usv-asmc-ca-v0", device="cpu", max_episode_steps=3)
+    benv = BatchedEnv(h, 4, frame_stack=2)
     state, _ = benv.reset(0)
+    blocks = torch.Generator().manual_seed(6)
     counter = timing.env_step_counter
     replayed, eager = counter.replayed, counter.eager
     for k in range(1, 6):
-        state, _ = benv.step(state, torch.zeros((4, 2)))
+        uniform = None
+        if draw == "uniform":
+            uniform = reset_uniform(blocks, 4, h.n_uniform(h.cfg), "cpu")
+        state, _ = benv.step(state, torch.zeros((4, 2)), uniform=uniform)
         assert (counter.replayed, counter.eager) == (replayed, eager + k)
-    assert pool or benv._graphed.graphs == {}
+    assert benv._graphed.graphs == {}

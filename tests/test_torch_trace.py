@@ -7,7 +7,8 @@ the CPU at small shapes.
   events, a span's self time is its total less its children's, and a span
   that raises closes all the same.
 * The phases fire where the program runs them: one ``BatchedEnv.step``
-  (full-width and pooled, ``usv-simple`` and ``usv-asmc-ca-v0``), one SAC
+  (its reset drawn from the generator or handed in as ``uniform``,
+  ``usv-simple`` and ``usv-asmc-ca-v0``), one SAC
   round, one gymnasium ``step``; ``usv-curved-aitsmc``'s PCHIP work opens
   ``usv.env.path`` inside the step's dynamics and its reset, and the step's
   anatomy reports it apart from the controller's substeps.
@@ -24,6 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 from usv_tpu_torch import timing
 from usv_tpu_torch.compat.gym_adapter import UsvSimpleEnv
 from usv_tpu_torch.envs import make
+from usv_tpu_torch.envs.types import reset_uniform
 from usv_tpu_torch.train.sac import SacConfig, SacLearner
 from usv_tpu_torch.vector import BatchedEnv
 
@@ -93,13 +95,23 @@ def test_span_on_records_totals_self_time_and_closes_on_error():
     assert timing.span_totals() == {}
 
 
-@pytest.mark.parametrize("pool", [0, 2], ids=["full_width", "pooled"])
+def _uniform(benv, draw):
+    """The ``uniform`` a test step takes: None (the batch's generator draws)
+    or a block from a seeded generator."""
+    if draw == "generator":
+        return None
+    return reset_uniform(torch.Generator().manual_seed(5), benv.num_envs,
+                         benv.handle.n_uniform(benv.cfg), "cpu")
+
+
+@pytest.mark.parametrize("draw", ["generator", "uniform"])
 @pytest.mark.parametrize("env_id", ["usv-simple", "usv-asmc-ca-v0"])
-def test_batched_step_fires_each_env_phase(env_id, pool):
-    benv = BatchedEnv(make(env_id, device="cpu"), 4, reset_pool=pool)
+def test_batched_step_fires_each_env_phase(env_id, draw):
+    benv = BatchedEnv(make(env_id, device="cpu"), 4)
     state, _ = benv.reset(0)
     actions = torch.zeros((4, benv.cfg.action_dim))
-    _, totals, _ = traced(lambda: benv.step(state, actions))
+    uniform = _uniform(benv, draw)
+    _, totals, _ = traced(lambda: benv.step(state, actions, uniform=uniform))
     want = dict.fromkeys(ENV_SPANS, 1)
     if env_id == "usv-asmc-ca-v0":
         # the substep loop runs in the step and again in the fresh resets'
@@ -111,11 +123,12 @@ def test_batched_step_fires_each_env_phase(env_id, pool):
     assert step["self_ms"] == pytest.approx(step["total_ms"] - children, abs=1e-9)
 
 
-@pytest.mark.parametrize("pool", [0, 2], ids=["full_width", "pooled"])
-def test_curved_path_span_opens_inside_dynamics_and_reset(pool):
-    benv = BatchedEnv(make("usv-curved-aitsmc", device="cpu"), 4, reset_pool=pool)
+@pytest.mark.parametrize("draw", ["generator", "uniform"])
+def test_curved_path_span_opens_inside_dynamics_and_reset(draw):
+    benv = BatchedEnv(make("usv-curved-aitsmc", device="cpu"), 4)
     state, _ = benv.reset(0)
-    _, totals, events = traced(lambda: benv.step(state, torch.zeros((4, 2))))
+    uniform = _uniform(benv, draw)
+    _, totals, events = traced(lambda: benv.step(state, torch.zeros((4, 2)), uniform=uniform))
     # one in the step (the lookahead target and ye), two in the reset (the
     # fit with the obstacles' abscissae, the reset observation)
     assert counts(totals) == {**dict.fromkeys(ENV_SPANS, 1), "usv.env.substeps": 1,

@@ -52,7 +52,7 @@ core    : angle/geometry math
 physics : vehicle coefficients, Fossen 3-DOF dynamics
 control : ASMC, AITSMC and PID controllers, the substep runner
 ops     : the ray-cast sensor (plain torch form, CUDA kernel, dispatch)
-envs    : the eight functional env cores, auto-reset (full, pooled), registry
+envs    : the eight functional env cores, auto-reset, registry
 vector  : ``BatchedEnv``, the frame stack, the rollout and throughput protocol
 models  : MLP, SAC actor and twin critic, PPO actor-critic, gSDE state
 train   : replay buffer, SAC and PPO learners, checkpoints, ``run_sac``/``run_ppo``,

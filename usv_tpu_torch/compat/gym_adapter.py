@@ -49,6 +49,7 @@ from usv_tpu_torch.compat import seed_replay
 from usv_tpu_torch.control.asmc import init_asmc
 from usv_tpu_torch.envs import asmc_ca
 from usv_tpu_torch.envs import make as make_functional
+from usv_tpu_torch.envs.types import reset_uniform
 from usv_tpu_torch.timing import span
 from usv_tpu_torch.utils import viz
 
@@ -171,7 +172,7 @@ class GymUsvEnv(gymnasium.Env if _HAS_GYMNASIUM else object):
             self._seed_counter += 1
             seed = self._seed_counter + np.random.randint(0, 2**31 - 1)
         g = torch.Generator().manual_seed(int(seed))
-        u = torch.rand((1, self.handle.n_uniform(self.handle.cfg)), generator=g)
+        u = reset_uniform(g, 1, self.handle.n_uniform(self.handle.cfg), g.device)
         return u.to(self.device, non_blocking=True)
 
     def _apply_reset_options(self, state, options):

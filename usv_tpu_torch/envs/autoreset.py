@@ -6,20 +6,11 @@ leaves. SB3's convention: on done, ``obs`` is the reset observation of the
 new episode and the old episode's last observation is
 ``info["terminal_observation"]``.
 
-Two forms, as in JAX:
-
-* :func:`make_autoreset_step` computes a fresh reset for every row on every
-  step (full width) and selects it into the rows that finished.
-* :func:`make_pooled_autoreset_step` computes only ``F`` fresh states per
-  step and hands the i-th done env pool entry ``cumsum(done) - 1``; a step
-  with more than ``F`` done envs takes the full-width path, so every done env
-  gets its own draw for any done pattern. JAX decides between the two paths
-  with ``lax.cond`` on the device. Here the host decides, so the pooled step
-  reads ``done.sum()`` back: one device-to-host synchronisation per step.
-
-On the card the full-width form runs through :class:`GraphedAutoResetStep`:
-the family step, the reset and the reset observation replayed as one CUDA
-graph, bit for bit the same step.
+:func:`make_autoreset_step` computes a fresh reset for every row on every
+step (full width) and selects it into the rows that finished. On the card
+the same step runs through :class:`GraphedAutoResetStep`: the family step,
+the reset and the reset observation (:func:`_phases`, the body both share)
+replayed as one CUDA graph, bit for bit the same step.
 """
 
 from __future__ import annotations
@@ -29,7 +20,7 @@ from typing import Callable, Optional
 import torch
 
 from usv_tpu_torch import timing
-from usv_tpu_torch.envs.types import TimeStep, tree_leaves, tree_map
+from usv_tpu_torch.envs.types import TimeStep, reset_uniform, tree_leaves, tree_map
 from usv_tpu_torch.timing import span
 
 
@@ -45,12 +36,12 @@ def _select(done, new, old):
 
 def _draw(uniform, generator, rows, n_uniform, device):
     """The first ``rows`` rows of ``uniform`` when given (a test feeds JAX's
-    draws), else a ``(rows, n_uniform)`` block drawn from ``generator``."""
+    draws), else a :func:`reset_uniform` block drawn from ``generator``."""
     if uniform is not None:
         return uniform[:rows]
     if generator is None:
         raise ValueError("auto_step needs a generator or a uniform block")
-    return torch.rand((rows, n_uniform), generator=generator, dtype=torch.float32, device=device)
+    return reset_uniform(generator, rows, n_uniform, device)
 
 
 def _timestep(ts, obs):
@@ -58,6 +49,20 @@ def _timestep(ts, obs):
     info["terminal_observation"] = ts.obs
     return TimeStep(obs=obs, reward=ts.reward, terminated=ts.terminated,
                     truncated=ts.truncated, info=info)
+
+
+def _phases(fns, state, action, draw):
+    """The auto-reset step up to its select: the family step, then a fresh
+    reset of every row from the block ``draw()`` returns and its
+    observation. ``fns`` is ``(cfg, step_fn, reset_from_uniform_fn,
+    reset_obs_fn)``. Returns ``(new_state, ts, fresh, fresh_obs)``."""
+    cfg, step_fn, reset_from_uniform_fn, reset_obs_fn = fns
+    with span("usv.env.dynamics"):
+        new_state, ts = step_fn(cfg, state, action)
+    with span("usv.env.reset"):
+        fresh = reset_from_uniform_fn(cfg, draw())
+        fresh_obs = reset_obs_fn(cfg, fresh)
+    return new_state, ts, fresh, fresh_obs
 
 
 def make_autoreset_step(
@@ -75,8 +80,9 @@ def make_autoreset_step(
 
     Returns ``auto_step(state, action, generator=None, uniform=None)``. The
     fresh resets come from ``uniform`` when given (a test feeds JAX's draws),
-    else from a ``torch.rand`` block drawn from ``generator``.
+    else from a :func:`reset_uniform` block drawn from ``generator``.
     """
+    fns = (cfg, step_fn, reset_from_uniform_fn, reset_obs_fn)
 
     def auto_step(
         state,
@@ -84,78 +90,11 @@ def make_autoreset_step(
         generator: Optional[torch.Generator] = None,
         uniform: Optional[torch.Tensor] = None,
     ):
-        with span("usv.env.dynamics"):
-            new_state, ts = step_fn(cfg, state, action)
+        leaf = tree_leaves(state)[0]
+        new_state, ts, fresh, fresh_obs = _phases(fns, state, action, lambda: _draw(
+            uniform, generator, leaf.shape[0], n_uniform, leaf.device))
         done = ts.done
-        with span("usv.env.reset"):
-            fresh = reset_from_uniform_fn(
-                cfg, _draw(uniform, generator, done.shape[0], n_uniform, done.device))
-            fresh_obs = reset_obs_fn(cfg, fresh)
         with span("usv.env.select"):
-            out_state = _select(done, fresh, new_state)
-            obs = torch.where(done[:, None], fresh_obs, ts.obs)
-        return out_state, _timestep(ts, obs)
-
-    return auto_step
-
-
-def default_reset_pool(num_envs: int) -> int:
-    """Default pool size: 0, the full-width select path everywhere, as in
-    JAX. The pooled path stays an explicit opt-in
-    (``BatchedEnv(..., reset_pool=F)``); ``PERF.md`` has its times on the
-    card beside the full-width path's."""
-    return 0
-
-
-def make_pooled_autoreset_step(
-    cfg,
-    step_fn: Callable,
-    reset_from_uniform_fn: Callable,
-    reset_obs_fn: Callable,
-    n_uniform: int,
-    num_envs: int,
-    fresh_per_step: int,
-):
-    """Batch-level auto-reset that computes ``fresh_per_step`` (F) fresh
-    states per step instead of ``num_envs``.
-
-    The i-th done env takes pool entry ``cumsum(done) - 1``, so each done env
-    gets its own independent draw. When more than F envs finish in one step
-    (the synchronized TimeLimit wave of a batch that was reset together) that
-    step takes the exact full-width path, so the semantics match
-    :func:`make_autoreset_step` in distribution for ANY done pattern.
-
-    The choice between the two paths is made on the host from
-    ``int(done.sum())``: the step waits for the device once. (Deciding a step
-    late, or always taking the pool, would hand two done envs the same draw
-    on a wave step.) The row gathers that deal pool entries to done rows cost
-    one ``index_select`` per leaf.
-
-    Returns ``auto_step(state, action, generator=None, uniform=None)`` over a
-    leading env dimension of ``num_envs``. A ``uniform`` block has
-    ``num_envs`` rows; the pooled path reads its first F.
-    """
-    F = int(min(max(1, fresh_per_step), num_envs))
-
-    def auto_step(
-        state,
-        action,
-        generator: Optional[torch.Generator] = None,
-        uniform: Optional[torch.Tensor] = None,
-    ):
-        with span("usv.env.dynamics"):
-            new_state, ts = step_fn(cfg, state, action)
-        done = ts.done
-        pooled = F < num_envs and int(done.sum()) <= F
-        rows = F if pooled else num_envs
-        with span("usv.env.reset"):
-            fresh = reset_from_uniform_fn(cfg, _draw(uniform, generator, rows, n_uniform, done.device))
-            fresh_obs = reset_obs_fn(cfg, fresh)
-        with span("usv.env.select"):
-            if pooled:
-                idx = torch.clamp(torch.cumsum(done, dim=0) - 1, 0, F - 1)
-                fresh = tree_map(lambda leaf: leaf.index_select(0, idx), fresh)
-                fresh_obs = fresh_obs.index_select(0, idx)
             out_state = _select(done, fresh, new_state)
             obs = torch.where(done[:, None], fresh_obs, ts.obs)
         return out_state, _timestep(ts, obs)
@@ -287,10 +226,9 @@ class _StepGraph:
         self.last = None  # the leaves of the state this graph's last step returned
 
     def body(self):
-        cfg, step_fn, reset_from_uniform_fn, reset_obs_fn = self.fns
-        new_state, ts = step_fn(cfg, self.state, self.action)
-        fresh = reset_from_uniform_fn(cfg, self.u)
-        return new_state, ts, ts.done, fresh, reset_obs_fn(cfg, fresh)
+        new_state, ts, fresh, fresh_obs = _phases(self.fns, self.state, self.action,
+                                                  lambda: self.u)
+        return new_state, ts, ts.done, fresh, fresh_obs
 
     def capture(self):
         """Warm up and capture :meth:`body` on the static inputs as they
@@ -330,7 +268,7 @@ class _StepGraph:
         elif generator is None:
             raise ValueError("auto_step needs a generator or a uniform block")
         else:
-            self.u.uniform_(generator=generator)  # torch.rand's draw, into the static block
+            reset_uniform(generator, *self.u.shape, self.u.device, out=self.u)
         if self.graph is None:
             self.capture()
         self.graph.replay()
@@ -356,17 +294,16 @@ class GraphedAutoResetStep:
     card, its phases replayed from one CUDA graph, bit for bit the same step.
 
     * The reset's uniform block is drawn eagerly, outside the graph, into a
-      static buffer: ``uniform_`` from the generator, the draw ``torch.rand``
-      makes for the eager step's shape and dtype, so the numbers and the
-      generator's state after the step are the eager step's; or a copy of
-      the caller's ``uniform`` block. No generator is registered with the
-      graph.
+      static buffer by :func:`reset_uniform`, the eager step's draw, so the
+      numbers and the generator's state after the step are the eager
+      step's; or it is a copy of the caller's ``uniform`` block. No
+      generator is registered with the graph.
     * The state's leaves and the action are copied into the graph's static
       inputs: one copy of a flat buffer a dtype when the state is the one
       this graph last returned, else one multi-tensor copy
       (``_foreach_copy_``).
-    * The graph replays the family step (with its guard, when ``step_fn``
-      has one), ``reset_from_uniform`` and ``reset_obs``.
+    * The graph replays :func:`_phases`: the family step (with its guard,
+      when ``step_fn`` has one), ``reset_from_uniform`` and ``reset_obs``.
     * After the replay, eagerly: the select into fresh flat buffers (the
       returned state), the ``obs`` select, and one ``cat`` for each dtype of
       the TimeStep's fields. Nothing returned aliases the graph's memory, so

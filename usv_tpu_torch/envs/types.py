@@ -14,7 +14,7 @@ walks them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -59,14 +59,26 @@ def tree_leaves(state):
     return [state]
 
 
+def reset_uniform(generator: torch.Generator, rows: int, width: int, device,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A reset's ``(rows, width)`` float32 block of U[0, 1) draws from
+    ``generator``: ``uniform_`` into ``out`` (a static buffer of that shape)
+    or into a new tensor. Every reset block of the port is drawn here, so a
+    step that fills a buffer draws the bits, and leaves the generator in the
+    state, of one that draws a new block (``torch.rand`` is ``empty`` then
+    ``uniform_``)."""
+    if out is None:
+        out = torch.empty((rows, width), dtype=torch.float32, device=device)
+    return out.uniform_(generator=generator)
+
+
 def reset_from_generator(reset_from_uniform: Callable, n_uniform: Callable) -> Callable:
     """A family's ``reset(cfg, generator, num_envs, device)``: ``num_envs``
-    fresh envs from one ``torch.rand`` block of ``(num_envs, n_uniform(cfg))``
-    drawn from ``generator`` and handed to ``reset_from_uniform``."""
+    fresh envs from one :func:`reset_uniform` block of ``(num_envs,
+    n_uniform(cfg))`` drawn from ``generator`` and handed to
+    ``reset_from_uniform``."""
 
     def reset(cfg, generator: torch.Generator, num_envs: int, device):
-        u = torch.rand((num_envs, n_uniform(cfg)), generator=generator,
-                       dtype=torch.float32, device=device)
-        return reset_from_uniform(cfg, u)
+        return reset_from_uniform(cfg, reset_uniform(generator, num_envs, n_uniform(cfg), device))
 
     return reset

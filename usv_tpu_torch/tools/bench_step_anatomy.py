@@ -8,11 +8,11 @@ path. The rows, JAX's under the same ``config`` names:
   raw                  the env's batch-first step alone, dones ignored (no
                        reset, no select)
   autoreset            the production step (``make_autoreset_step``)
-  select_only          the step, the reset's generator draw (``_draw``) and
-                       the select, with a CONSTANT reset template in place
-                       of the fresh reset (JAX's ``make_const_autoreset``):
-                       autoreset - select_only is the reset transform as
-                       paid in the step
+  select_only          the step, the reset's generator draw
+                       (``reset_uniform``) and the select, with a CONSTANT
+                       reset template in place of the fresh reset (JAX's
+                       ``make_const_autoreset``): autoreset - select_only
+                       is the reset transform as paid in the step
   reset_only           the reset alone: one uniform sweep and its transform
                        a step, one float leaf summed
   autoreset_rewardsum  autoreset with the reward summed on the device
@@ -57,8 +57,8 @@ import time
 
 import torch
 
-from usv_tpu_torch.envs.autoreset import _draw, _select, _timestep, make_autoreset_step
-from usv_tpu_torch.envs.types import tree_leaves, tree_map
+from usv_tpu_torch.envs.autoreset import _select, _timestep, make_autoreset_step
+from usv_tpu_torch.envs.types import reset_uniform, tree_leaves, tree_map
 from usv_tpu_torch.timing import profiled, synchronize
 from usv_tpu_torch.utils.seeding import new_generator
 from usv_tpu_torch.vector import rollout
@@ -126,7 +126,7 @@ class Anatomy:
         fresh reset; the reset's uniform block is still drawn."""
         new_state, ts = self.handle.step(self.cfg, state, self.zeros)
         done = ts.done
-        _draw(None, generator, self.B, self.n_uniform, self.device)
+        reset_uniform(generator, self.B, self.n_uniform, self.device)
         out_state = _select(done, self.template, new_state)
         obs = torch.where(done[:, None], self.handle.reset_obs(self.cfg, self.template), ts.obs)
         return out_state, _timestep(ts, obs)

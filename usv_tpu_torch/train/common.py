@@ -17,7 +17,7 @@ from typing import Callable, Dict, List, Sequence
 import numpy as np
 import torch
 
-from usv_tpu_torch.envs.types import tree_map
+from usv_tpu_torch.envs.types import reset_uniform, tree_map
 from usv_tpu_torch.utils.seeding import derived_seed, new_generator  # noqa: F401 (re-exported)
 
 
@@ -140,8 +140,7 @@ def eval_stats_many(benv, seeds: Sequence[int], act: Callable, n_steps: int) -> 
     gens: List[torch.Generator] = [new_generator(s, benv.device) for s in seeds]
 
     def uniform():
-        return per_member(gens, lambda g: torch.rand((n, width), generator=g, dtype=torch.float32,
-                                                     device=benv.device))
+        return per_member(gens, lambda g: reset_uniform(g, n, width, benv.device))
 
     state, _ = benv.reset(uniform=uniform())
     per_step: Dict[str, list] = {}

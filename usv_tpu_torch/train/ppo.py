@@ -35,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from usv_tpu_torch.envs.registry import EnvHandle
-from usv_tpu_torch.envs.types import tree_map
+from usv_tpu_torch.envs.types import reset_uniform, tree_map
 from usv_tpu_torch.models.mlp import PpoActorCritic
 from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
 from usv_tpu_torch.models.stacked import Stacked, vmap_members
@@ -258,7 +258,7 @@ class PpoLearner:
             clipped = torch.clamp(action, self._low, self._high)
             reset = d.get("reset")
             if reset is None:
-                reset = torch.rand((B, width), generator=ts.generator, dtype=torch.float32, device=dev)
+                reset = reset_uniform(ts.generator, B, width, dev)
             ts.batch, step = self.benv.step(ts.batch, clipped, uniform=rows(reset))
             # time-limit bootstrap, SB3-style: a truncated (not terminated)
             # episode adds gamma * V(terminal obs), so that GAE can treat
@@ -509,7 +509,7 @@ class PpoLearner:
                 models.append(self.build_model().to(dev))
             g = new_generator(seed, dev)
             generators.append(g)
-            uniforms.append(torch.rand((B, width), generator=g, dtype=torch.float32, device=dev))
+            uniforms.append(reset_uniform(g, B, width, dev))
             if cfg.use_sde:
                 mats.append(init_sde(g, cfg.pi_hidden[-1], self.act_dim, (B,), dev).exploration_mat)
         model = Stacked.from_modules(models)
@@ -556,8 +556,7 @@ class PpoLearner:
                                    obs.view(S, B, -1), noise.view(S, B, -1))
             action, logp, value = (x.reshape(S * B, *x.shape[2:]) for x in out)
             clipped = torch.clamp(action, self._low, self._high)
-            reset = per_member(ps.generators, lambda g: torch.rand(
-                (B, width), generator=g, dtype=torch.float32, device=dev))
+            reset = per_member(ps.generators, lambda g: reset_uniform(g, B, width, dev))
             ps.batch, step = benv.step(ps.batch, clipped, uniform=reset)
             truncated_only = (step.truncated & ~step.terminated).to(torch.float32)
             terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)

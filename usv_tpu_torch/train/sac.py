@@ -66,6 +66,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from usv_tpu_torch.envs.registry import EnvHandle
+from usv_tpu_torch.envs.types import reset_uniform
 from usv_tpu_torch.models.mlp import DoubleCritic, SquashedGaussianActor
 from usv_tpu_torch.models.sde import SdeState, init_sde, maybe_resample
 from usv_tpu_torch.models.stacked import Stacked, vmap_members
@@ -366,7 +367,7 @@ class SacLearner:
             actions = self._policy_action(ts, obs, ts.env_steps < warmup_steps, d, rows)
             reset = d.get("reset")
             if reset is None:
-                reset = torch.rand((B, width), generator=ts.generator, dtype=torch.float32, device=dev)
+                reset = reset_uniform(ts.generator, B, width, dev)
             ts.batch, step = self.benv.step(ts.batch, actions, uniform=rows(reset))
             # next_obs: the frame stack continued with the terminal observation,
             # not the reset one; done is terminated only (truncation bootstraps)
@@ -634,7 +635,7 @@ class SacLearner:
                                             compute_dtype=self.compute_dtype))
             g = new_generator(seed, dev)
             generators.append(g)
-            uniforms.append(torch.rand((B, width), generator=g, dtype=torch.float32, device=dev))
+            uniforms.append(reset_uniform(g, B, width, dev))
             if cfg.use_sde:
                 mats.append(init_sde(g, cfg.hidden[-1], self.act_dim, (B,), dev).exploration_mat)
         actor = Stacked.from_modules([m.to(dev) for m in actors])
@@ -691,8 +692,7 @@ class SacLearner:
                                                                         generator=g, device=dev))
                 actions = vmap_members(lambda actor, o, n: actor.sample(o, noise=n)[0], [ps.actor],
                                        obs.view(S, B, -1), noise.view(S, B, -1)).reshape(S * B, -1)
-            reset = per_member(ps.generators, lambda g: torch.rand(
-                (B, width), generator=g, dtype=torch.float32, device=dev))
+            reset = per_member(ps.generators, lambda g: reset_uniform(g, B, width, dev))
             ps.batch, step = benv.step(ps.batch, actions, uniform=reset)
             terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
             for name, value in (("obs", obs), ("action", actions), ("reward", step.reward),

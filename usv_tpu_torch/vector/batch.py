@@ -2,8 +2,8 @@
 
 The batch dimension that JAX gets from ``vmap`` is explicit in the port:
 every env function already takes ``(B, ...)`` tensors. :class:`BatchedEnv`
-binds one env family to a width, adds the auto-reset (full width or pooled),
-the optional numerical guard and the optional rolling frame stack, and is the
+binds one env family to a width, adds the full-width auto-reset, the
+optional numerical guard and the optional rolling frame stack, and is the
 entry point through which a learner or an adapter reaches an env.
 """
 
@@ -14,12 +14,7 @@ from typing import Optional, Union
 
 import torch
 
-from usv_tpu_torch.envs.autoreset import (
-    GraphedAutoResetStep,
-    default_reset_pool,
-    make_autoreset_step,
-    make_pooled_autoreset_step,
-)
+from usv_tpu_torch.envs.autoreset import GraphedAutoResetStep, make_autoreset_step
 from usv_tpu_torch.envs.registry import EnvHandle
 from usv_tpu_torch.timing import env_step_counter, span
 from usv_tpu_torch.utils.guards import make_sanitized_step
@@ -50,10 +45,7 @@ class BatchedEnv:
     >>> state, ts = benv.step(state, actions)           # actions: (4096, 2)
 
     ``sanitize`` wraps the step in the numerical guard
-    (``utils/guards.py``). ``reset_pool``: fresh resets computed per step;
-    ``None`` takes :func:`default_reset_pool` (0: the full-width path), an
-    explicit ``0 < F < num_envs`` opts into the pooled path
-    (``envs/autoreset.py``).
+    (``utils/guards.py``).
 
     The generator given to (or made by) :meth:`reset` stays with the batch
     and feeds the resets of later steps, unless a step is handed its own or
@@ -61,13 +53,14 @@ class BatchedEnv:
 
     On the card the full-width step replays one CUDA graph per input
     signature (``envs/autoreset.py::GraphedAutoResetStep``), captured at its
-    first step; the pooled step, CPU tensors, actions that carry autograd
-    history and a step called inside another capture run eagerly.
+    first step; CPU tensors, actions that carry autograd history and a step
+    called inside another capture run the same step eagerly
+    (``envs/autoreset.py::make_autoreset_step``).
     ``timing.env_step_counter`` counts the steps of each kind.
     """
 
     def __init__(self, handle: EnvHandle, num_envs: int, frame_stack: int = 0,
-                 sanitize: bool = False, reset_pool: Optional[int] = None):
+                 sanitize: bool = False):
         self.handle = handle
         self.cfg = handle.cfg
         self.device = handle.device
@@ -83,14 +76,9 @@ class BatchedEnv:
                 return sanitized(state, action)
 
         n_uniform = handle.n_uniform(self.cfg)
-        pool = default_reset_pool(num_envs) if reset_pool is None else reset_pool
         fns = (self.cfg, step_fn, handle.reset_from_uniform, handle.reset_obs, n_uniform)
-        self._graphed = None
-        if pool and pool < num_envs:
-            self._auto_step = make_pooled_autoreset_step(*fns, num_envs, pool)
-        else:
-            self._auto_step = make_autoreset_step(*fns)
-            self._graphed = GraphedAutoResetStep(*fns)
+        self._auto_step = make_autoreset_step(*fns)
+        self._graphed = GraphedAutoResetStep(*fns)
 
     def reset(self, generator: Union[torch.Generator, int] = 0,
               uniform: Optional[torch.Tensor] = None):
@@ -116,7 +104,7 @@ class BatchedEnv:
              uniform: Optional[torch.Tensor] = None):
         """One auto-resetting step of every env -> ``(BatchState, TimeStep)``."""
         generator = self.generator if generator is None else generator
-        if (self._graphed is not None and isinstance(actions, torch.Tensor) and actions.is_cuda
+        if (isinstance(actions, torch.Tensor) and actions.is_cuda
                 and not (actions.requires_grad and torch.is_grad_enabled())
                 and not torch.cuda.is_current_stream_capturing()):
             # the phases run on the device, so no env span would time anything

@@ -29,7 +29,7 @@ def rollout(handle: EnvHandle, num_envs: int, n_steps: int, seed: int = 0,
             policy_fn: Optional[Callable] = None, collect: bool = False, **batch_options):
     """Run ``n_steps`` auto-reset steps of ``num_envs`` envs on
     ``handle.device`` through :class:`BatchedEnv` (``batch_options``:
-    ``frame_stack``, ``sanitize``, ``reset_pool``) — the counterpart of
+    ``frame_stack``, ``sanitize``) — the counterpart of
     JAX's ``rollout_scan``.
 
     ``policy_fn(obs, generator) -> actions``: ``obs`` is the step's raw
