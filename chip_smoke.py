@@ -41,8 +41,9 @@ version on the card. Phases, each of which exits non-zero on failure:
    kernel against its plain version on the live states of the three paths;
 7. the curved path: ``usv-curved-aitsmc`` at 64 envs on the card against
    the CPU, then at 4096 envs with one launch per step and none per reset,
-   its step anatomy and the kernel against its plain version on its live
-   state;
+   of the ray cast and of the AITSMC substep kernel alike, in the rollout
+   and in a driven run, its step anatomy and the kernel against its plain
+   version on its live state;
 8. the legacy ids (``usv-asmc-v0``, ``usv-pid-v0``, ``usv-asmc-ye-int-v0``):
    card against CPU, short runs at 4096 envs, no kernel launch;
 9. policy serving: a 400x300 gSDE SAC actor (715 inputs: ``usv-simple``
@@ -217,12 +218,14 @@ version on the card. Phases, each of which exits non-zero on failure:
     and ``bench_train``'s widths), timed in the ``kernels`` line.
 25. the graphed step: ``BatchedEnv``'s full-width step, replayed from its
     CUDA graph, against the eager auto-reset step (``make_autoreset_step``
-    on the same functions) on ``usv-simple`` and ``usv-asmc-ca-v0`` at 4096
-    envs: one step from one state and one generator state bit for bit, then
-    the wall ms a step of each in turns (200 steps a run on ``usv-simple``,
-    20 on the CA env, best of 2), ``timing.env_step_counter`` (every
-    ``BatchedEnv`` step replayed, none eager) and the kernel's launches a
-    step on both sides (1 and 2), and the ASMC substep kernel's (0 and 2);
+    on the same functions) on ``usv-simple``, ``usv-asmc-ca-v0`` and
+    ``usv-curved-aitsmc`` at 4096 envs: one step from one state and one
+    generator state bit for bit, then the wall ms a step of each in turns
+    (200 steps a run on ``usv-simple``, 20 on the others, best of 2),
+    ``timing.env_step_counter`` (every ``BatchedEnv`` step replayed, none
+    eager) and the launches a step on both sides, each counter reset to 0
+    before each run: the kernel's (1, 2 and 1), the ASMC substep kernel's
+    (0, 2 and 0) and the AITSMC substep kernel's (0, 0 and 1);
 26. the ASMC substep kernel (``csrc/asmc_substeps.cu``) alone: its
     registers and spills (``-Xptxas -v``, from phase 2's build), then at
     4096 envs and at one, on a state warmed by 50 random-action steps, one
@@ -231,11 +234,20 @@ version on the card. Phases, each of which exits non-zero on failure:
     that loop's, eager and replayed from a CUDA graph, and its bytes' bound.
     It has no Pallas counterpart: the JAX package leaves this loop to XLA's
     fusion of ``lax.scan``.
+27. the AITSMC substep kernel (``csrc/aitsmc_substeps.cu``) alone, as phase
+    26 times the ASMC one, at the curved family's call (the setpoint as
+    views of one tensor, the feedforward as numbers, no force): its
+    registers and spills, then at 4096 envs and at one, on a state warmed by
+    50 steps of random setpoints, one call bit for bit against the loop of
+    tensor ops, the device ms of a 5-substep call at 32, 64 and 128 threads
+    beside that loop's, eager and replayed, and its bytes' bound; its
+    ``kernels`` record carries phase 25's launches a replayed curved step.
+    No Pallas counterpart either.
 
 Every phase heading prints the seconds since the script started.
 
 The line before the last is a JSON ``kernels`` record (the ray-cast's, then
-the substep kernel's); the last line is
+the two substep kernels'); the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
 result.
 """
@@ -327,6 +339,11 @@ OPS_PER_SLOT = 8
 SUBSTEP_WIDTHS = (4096, 1)
 SUBSTEP_THREADS = (32, 64, 128)
 SUBSTEP_BYTES_PER_ENV = (22 + 2 + 1) * 4 + (29 + 1) * 4
+# phase 27: the AITSMC substep kernel's bytes a env as usv-curved-aitsmc
+# calls it: the 20 state floats and the setpoint's 2 in (the feedforward is a
+# number), the 24 floats (state and the last substep's 4) out; 5 substeps
+AITSMC_BYTES_PER_ENV = (20 + 2) * 4 + 24 * 4
+AITSMC_SUBSTEPS = 5
 # The data sheet's float32 peak counts a fused multiply-add as two. The
 # kernel's operations are unfused (-fmad=false), one issue slot each: a kernel
 # that evaluates every valid pair cannot go under this ceiling.
@@ -739,6 +756,7 @@ def curved_path(device, card, rc):
     ``curved_*`` keys, the kernel-vs-plain difference on the live state, and
     the config and live state (for the kernel-time phase)."""
     from usv_tpu_torch.envs import make
+    from usv_tpu_torch.timing import aitsmc_substep_counter
     from usv_tpu_torch.vector import BatchedEnv, BatchState, rollout, throughput
 
     env_id = "usv-curved-aitsmc"
@@ -746,14 +764,18 @@ def curved_path(device, card, rc):
     handle = make(env_id)
     check(handle.device.type == "cuda", "make() did not default to the card")
     cfg = handle.cfg
-    rc.counter.launches = 0
+    rc.counter.launches = aitsmc_substep_counter.launches = 0
     state, obs, reward_sum, done_count = rollout(handle, NUM_ENVS, CURVED_STEPS, seed=0)
     out = throughput(handle, num_envs=NUM_ENVS, n_steps=CURVED_STEPS, repeats=REPEATS)
     launches = rc.counter.launches
-    # the reset casts no ray: one launch per auto-reset step and none per reset
+    # the reset casts no ray and takes no substep: one launch of each kernel
+    # per auto-reset step and none per reset
     runs = 2 + REPEATS
     check(launches == runs * CURVED_STEPS,
           f"curved path: {launches} kernel launches, expected {runs * CURVED_STEPS}")
+    substeps = aitsmc_substep_counter.launches
+    check(substeps == runs * CURVED_STEPS,
+          f"curved path: {substeps} AITSMC substep launches, expected {runs * CURVED_STEPS}")
     check(obs.shape == (NUM_ENVS, cfg.obs_dim), f"curved obs shape {tuple(obs.shape)}")
     check(bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward_sum)), "curved: non-finite")
     sensor = obs[:, 9:]
@@ -763,7 +785,8 @@ def curved_path(device, card, rc):
     ms = out["seconds"] / CURVED_STEPS * 1e3
     print(f"  {env_id}: {out['steps_per_second']:.1f} env-steps/s, {ms:.4f} ms per step "
           f"({NUM_ENVS} envs x {CURVED_STEPS} steps, best of {REPEATS}: {out['seconds']:.4f} s) on {card}")
-    print(f"  kernel launches {launches} = {runs} runs x {CURVED_STEPS} steps; reward sum "
+    print(f"  kernel launches {launches} and AITSMC substep launches {substeps} = {runs} runs x "
+          f"{CURVED_STEPS} steps; reward sum "
           f"{float(reward_sum):.6g}, episode ends {int(done_count)}", flush=True)
     max_err = check_kernel_on_live_state(env_id, cfg, state)
 
@@ -776,12 +799,14 @@ def curved_path(device, card, rc):
     benv = BatchedEnv(handle, NUM_ENVS, frame_stack=5, sanitize=True)
     bstate, _ = benv.reset(3)
     actions = torch.tensor([1.0, 0.0], device=device).expand(NUM_ENVS, 2)
-    rc.counter.launches = 0
+    rc.counter.launches = aitsmc_substep_counter.launches = 0
     dones = torch.zeros((), dtype=torch.int64, device=device)
     for _ in range(CURVED_STEPS):
         bstate, ts = benv.step(bstate, actions)
         dones += ts.done.sum()
     check(rc.counter.launches == CURVED_STEPS, f"driven curved run: {rc.counter.launches} launches")
+    check(aitsmc_substep_counter.launches == CURVED_STEPS,
+          f"driven curved run: {aitsmc_substep_counter.launches} AITSMC substep launches")
     check(bool(torch.isfinite(bstate.frames).all()) and not bool(ts.info["diverged"].any()),
           "driven curved run: non-finite frames or a diverged env")
     moved = float(bstate.env.dyn.pose[:, 0].mean())
@@ -790,7 +815,8 @@ def curved_path(device, card, rc):
     print(f"  driven run (setpoint u=1, frame_stack=5, sanitize=True): mean x {moved:.3f} m after "
           f"{CURVED_STEPS} steps, {int(dones)} episode ends", flush=True)
 
-    extra = {"curved_launches": launches, "curved_steps_run": runs * CURVED_STEPS,
+    extra = {"curved_launches": launches, "curved_aitsmc_substep_launches": substeps,
+             "curved_steps_run": runs * CURVED_STEPS,
              "curved_env_steps_per_s": out["steps_per_second"], "curved_ms_per_step": ms,
              "curved_step_anatomy": anatomy}
     return extra, max_err, cfg, state
@@ -3022,7 +3048,11 @@ def measurement_tools(device, card, rc, time_shape, tmp):
         reward_curve_card_vs_cpu=curve_err, population_sweep=sweep["blocks"])}, max_err, rows
 
 
-GRAPH_STEPS = {"usv-simple": 200, "usv-asmc-ca-v0": 20}  # phase 25: steps a timed run
+# phase 25: steps a timed run, and each kernel's launches a step: the ray
+# cast's, the ASMC substep kernel's, the AITSMC substep kernel's
+GRAPH_STEPS = {"usv-simple": 200, "usv-asmc-ca-v0": 20, "usv-curved-aitsmc": 20}
+GRAPH_LAUNCHES = {"usv-simple": (1, 0, 0), "usv-asmc-ca-v0": (2, 2, 0),
+                  "usv-curved-aitsmc": (1, 0, 1)}
 
 
 def graphed_step(device, card, rc):
@@ -3031,7 +3061,7 @@ def graphed_step(device, card, rc):
 
     from usv_tpu_torch.envs import make
     from usv_tpu_torch.envs.autoreset import make_autoreset_step
-    from usv_tpu_torch.timing import env_step_counter, substep_counter
+    from usv_tpu_torch.timing import aitsmc_substep_counter, env_step_counter, substep_counter
     from usv_tpu_torch.vector import BatchedEnv
 
     def bits(tree):
@@ -3076,29 +3106,30 @@ def graphed_step(device, card, rc):
             for key, run in (("graphed_ms", run_graphed), ("eager_ms", run_eager)):
                 env_step_counter.replayed = env_step_counter.eager = 0
                 rc.counter.launches = substep_counter.launches = 0
+                aitsmc_substep_counter.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 run()
                 torch.cuda.synchronize()
                 row[key].append((time.perf_counter() - t0) / steps * 1e3)
-                per_step = rc.counter.launches / steps
                 counted = (env_step_counter.replayed, env_step_counter.eager)
                 want_count = (steps, 0) if key == "graphed_ms" else (0, 0)
                 check(counted == want_count, f"{env_id} {key}: env_step_counter {counted}, "
                                              f"expected {want_count}")
-                check(per_step == (2 if env_id == "usv-asmc-ca-v0" else 1),
-                      f"{env_id} {key}: {per_step} kernel launches a step")
-                substeps = substep_counter.launches / steps
-                check(substeps == (2 if env_id == "usv-asmc-ca-v0" else 0),
-                      f"{env_id} {key}: {substeps} substep kernel launches a step")
-                row[key.replace("_ms", "_launches_per_step")] = per_step
-                row[key.replace("_ms", "_substep_launches_per_step")] = substeps
+                per_step = tuple(c.launches / steps for c in
+                                 (rc.counter, substep_counter, aitsmc_substep_counter))
+                check(per_step == GRAPH_LAUNCHES[env_id],
+                      f"{env_id} {key}: {per_step} launches a step of the ray cast, the ASMC "
+                      f"and the AITSMC substep kernels, expected {GRAPH_LAUNCHES[env_id]}")
+                for name, n in zip(("", "substep_", "aitsmc_substep_"), per_step):
+                    row[key.replace("_ms", f"_{name}launches_per_step")] = n
         graphed, eager_ms = min(row["graphed_ms"]), min(row["eager_ms"])
         print(f"  {env_id} at {NUM_ENVS} envs: graphed {graphed:.4f} ms a step, eager "
               f"{eager_ms:.4f} ms ({eager_ms / graphed:.2f}x, best of 2 runs of {steps} steps) on "
               f"{card}; bit for bit one step; env_step_counter replayed {steps}, eager 0 a graphed "
               f"run; {row['graphed_launches_per_step']:.0f} kernel launches a step on both sides, "
-              f"{row['graphed_substep_launches_per_step']:.0f} of the substep kernel", flush=True)
+              f"{row['graphed_substep_launches_per_step']:.0f} of the ASMC substep kernel, "
+              f"{row['graphed_aitsmc_substep_launches_per_step']:.0f} of the AITSMC one", flush=True)
         record[env_id] = row
     return {"graphed_step": record}
 
@@ -3188,6 +3219,104 @@ def substep_kernel(device, card, report):
         "eager_plain_ms": main_row["eager_ops_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": "bytes",
+        "library_ms": None,
+        "shapes": rows,
+    }
+
+
+def aitsmc_substep_kernel(device, card, report, curved_launches):
+    """Phase 27: the AITSMC substep kernel alone, against its loop of tensor
+    ops, at the curved family's call (setpoint views, number feedforward, no
+    force). ``curved_launches``: phase 25's curved row (the main path's
+    launches a step)."""
+    from usv_tpu_torch.control import aitsmc
+    from usv_tpu_torch.ops import aitsmc_cuda
+    from usv_tpu_torch.physics.dynamics import init_dynamics
+    from usv_tpu_torch.physics.params import VehicleParams
+    from usv_tpu_torch.timing import aitsmc_substep_counter, time_cuda, time_device
+
+    ((entry, regs, stores, loads),) = report
+    print(f"  {entry}: {regs} registers, {stores} B spill stores, {loads} B spill loads")
+    gains, vp = aitsmc.AitsmcGains(), VehicleParams()
+    check(aitsmc_cuda.THREADS in SUBSTEP_THREADS, f"THREADS {aitsmc_cuda.THREADS} is not timed")
+
+    def bits(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree.reshape(-1).clone(memory_format=torch.contiguous_format).view(torch.uint8)]
+        if isinstance(tree, dict):
+            return [b for k in sorted(tree) for b in bits(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [b for v in tree for b in bits(v)]
+        if dataclasses.is_dataclass(tree):
+            return [b for f in dataclasses.fields(tree) for b in bits(getattr(tree, f.name))]
+        return []
+
+    rows = []
+    for B in SUBSTEP_WIDTHS:
+        g = torch.Generator(device=device)
+        g.manual_seed(B)
+
+        def setpoint():
+            u = torch.rand((B, 2), generator=g, device=device)
+            values = torch.stack([u[:, 0] * 3.0 - 0.5, (u[:, 1] * 2.0 - 1.0) * 1.5], -1)
+            return aitsmc.AitsmcSetpoint(u=values[:, 0], r=values[:, 1], dot_u=0.0, dot_r=0.0)
+
+        loop = aitsmc.AitsmcLoopState(ctrl=aitsmc.init_aitsmc((B,), device=device),
+                                      dyn=init_dynamics(batch_shape=(B,), device=device))
+        for t in range(50):
+            if t % 10 == 0:
+                sp = setpoint()
+            loop, _, _ = aitsmc.aitsmc_compute(gains, vp, loop, sp)
+        sp = setpoint()
+        aitsmc_substep_counter.launches = 0
+        got = aitsmc.aitsmc_compute(gains, vp, loop, sp)
+        want = aitsmc._aitsmc_compute_ops(gains, vp, loop, sp)
+        same = all(torch.equal(x, y) for x, y in zip(bits(got[:2]), bits(want[:2])))
+        check(same and aitsmc_substep_counter.launches == 1,
+              f"B={B}: the AITSMC kernel differs from the loop of tensor ops")
+        ctrl = [getattr(loop.ctrl, f) for f in aitsmc_cuda.CTRL_FIELDS]
+        dyn = [loop.dyn.pose, loop.dyn.vel, loop.dyn.accel_last, loop.dyn.eta_dot_last]
+        row = {"B": B}
+        for threads in SUBSTEP_THREADS:
+            row[f"ms_{threads}_threads"] = time_device(
+                lambda threads=threads: aitsmc_cuda.aitsmc_substeps_cuda(
+                    ctrl, dyn, (sp.u, sp.r, 0.0, 0.0), None, (gains, vp, 0.01),
+                    AITSMC_SUBSTEPS, threads))
+        row["ms"] = row[f"ms_{aitsmc_cuda.THREADS}_threads"]
+
+        def ops():
+            aitsmc._aitsmc_compute_ops(gains, vp, loop, sp)
+
+        row["eager_ops_ms"] = time_cuda(ops, 3)
+        row["graphed_ops_ms"] = time_device(ops, calls=1, replays=5)
+        row["bound_ms"] = B * AITSMC_BYTES_PER_ENV / PEAK_BYTES_PER_S * 1e3
+        threads_ms = ", ".join(f"{t} threads {row[f'ms_{t}_threads']:.5f}" for t in SUBSTEP_THREADS)
+        print(f"  B={B}: bit for bit against the loop of tensor ops; a 5-substep call "
+              f"{threads_ms} ms; the loop of tensor ops {row['eager_ops_ms']:.4f} ms eager, "
+              f"{row['graphed_ops_ms']:.4f} ms replayed from a graph; bound "
+              f"{row['bound_ms']:.6f} ms ({B * AITSMC_BYTES_PER_ENV} B) on {card}", flush=True)
+        rows.append(row)
+    main_row = rows[0]
+    return {
+        "name": "aitsmc_substeps",
+        "route": "cuda",
+        "source": "usv_tpu_torch/csrc/aitsmc_substeps.cu",
+        "replaces": None,
+        "tpu_kernel": None,
+        "registers": regs,
+        "spill_stores": stores,
+        "spill_loads": loads,
+        "threads": aitsmc_cuda.THREADS,
+        # phase 25: the main path's launches a step, replayed and eager
+        "launches_per_curved_step": {
+            key: curved_launches[f"{key}_aitsmc_substep_launches_per_step"]
+            for key in ("graphed", "eager")},
+        "ms": main_row["ms"],
+        "kernel_ms": main_row["ms"],
+        "plain_ms": main_row["graphed_ops_ms"],
+        "eager_plain_ms": main_row["eager_ops_ms"],
+        "bound_ms": main_row["bound_ms"],
+        "bound_by": "latency: one thread's chain of 5 dependent substeps",
         "library_ms": None,
         "shapes": rows,
     }
@@ -3427,11 +3556,16 @@ def main():
         max_err = max(max_err, live_err)
         other_rows += tools_rows
 
-    phase("graphed step: usv-simple, usv-asmc-ca-v0, graphed against eager")
+    phase("graphed step: usv-simple, usv-asmc-ca-v0, usv-curved-aitsmc, graphed against eager")
     graphed_record = graphed_step(device, card, rc)
 
     phase("substep kernel: the ASMC loop in one launch, against its loop of tensor ops")
     substep_record = substep_kernel(device, card, reports["asmc_substeps"])
+
+    phase("AITSMC substep kernel: the curved step's loop in one launch, against its loop of "
+          "tensor ops")
+    aitsmc_record = aitsmc_substep_kernel(device, card, reports["aitsmc_substeps"],
+                                          graphed_record["graphed_step"]["usv-curved-aitsmc"])
 
     record = {
         "name": "raycast",
@@ -3482,7 +3616,7 @@ def main():
         **graphed_record,
     }
     print(card)
-    print(json.dumps({"kernels": [record, substep_record]}))
+    print(json.dumps({"kernels": [record, substep_record, aitsmc_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -31,7 +31,7 @@ import torch
 
 from usv_tpu_torch import timing
 from usv_tpu_torch.control import asmc
-from usv_tpu_torch.ops import asmc_cuda
+from usv_tpu_torch.ops import _substeps, asmc_cuda
 from usv_tpu_torch.physics.dynamics import _REF_PI, _YV_FORM_FACTOR
 from usv_tpu_torch.physics.params import VehicleParams
 
@@ -160,12 +160,15 @@ def _struct_fields(source, name):
 
 def test_packed_constants_follow_the_kernel_structs():
     source = SOURCE.read_text()
-    names = (_struct_fields(source, "FossenConstants") + _struct_fields(source, "AsmcConstants")
+    header = (SOURCE.parent / "fossen.cuh").read_text()  # the Fossen model, shared
+    assert '#include "fossen.cuh"' in source
+    names = (_struct_fields(header, "FossenConstants") + _struct_fields(source, "AsmcConstants")
              + _struct_fields(source, "StepConstants"))
     packed = asmc_cuda.pack_constants(GAINS, VP, 0.01, 10.0, 5.0)
     assert list(packed) == names
     assert all(isinstance(v, np.float32) for v in packed.values())
-    assert len(asmc_cuda._constants_array(GAINS, VP, 0.01, 10.0, 5.0)) == len(names)
+    assert len(_substeps.constants_array(asmc_cuda.pack_constants, GAINS, VP, 0.01, 10.0, 5.0)) \
+        == len(names)
 
 
 def test_ctrl_fields_are_asmc_state_fields():
@@ -229,7 +232,8 @@ def test_packed_constants_are_the_eager_loops_scalars(dt, freq, magnitude):
 
 def test_a_capture_tallies_every_kernels_launches():
     assert asmc_cuda.counter is timing.substep_counter
-    assert timing.LAUNCH_COUNTERS == (timing.counter, timing.substep_counter)
+    assert timing.LAUNCH_COUNTERS == (timing.counter, timing.substep_counter,
+                                      timing.aitsmc_substep_counter)
     ray, sub = timing.counter.launches, timing.substep_counter.launches
     timing.add_replay({timing.counter: 1, timing.substep_counter: 2})
     assert (timing.counter.launches - ray, timing.substep_counter.launches - sub) == (1, 2)

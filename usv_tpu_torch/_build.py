@@ -4,7 +4,8 @@ Each source under ``csrc/`` compiles to its own shared library with a plain C
 interface, bound with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). The library lands in ``build/kernels/`` at the root of the
 checkout, named by a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. :func:`build` starts one
+is rebuilt and an unchanged one is loaded as it is; the hash covers the
+``csrc/`` headers a source includes (``fossen.cuh``). :func:`build` starts one
 ``nvcc`` per missing source, all together, and waits for them; :func:`load`
 builds every missing library at once, so a cold run waits for ``nvcc`` once.
 
@@ -28,7 +29,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # name -> source under csrc/
-SOURCES = {"raycast": "raycast.cu", "asmc_substeps": "asmc_substeps.cu"}
+SOURCES = {"raycast": "raycast.cu", "asmc_substeps": "asmc_substeps.cu",
+           "aitsmc_substeps": "aitsmc_substeps.cu"}
 
 # -fmad=false: see the numerics notes in csrc/*.cu. No fast math.
 NVCC_FLAGS = (
@@ -53,10 +55,28 @@ def find_nvcc() -> str:
     )
 
 
+def _sources(name: str):
+    """The source of kernel ``name`` and every ``csrc/`` header it includes
+    (``#include "..."``), transitively, each once, in the order found."""
+    found, todo = [], [SOURCES[name]]
+    while todo:
+        rel = todo.pop(0)
+        if rel in found:
+            continue
+        found.append(rel)
+        todo += re.findall(r'^\s*#\s*include\s+"([^"]+)"', (CSRC / rel).read_text(), re.MULTILINE)
+    return found
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of kernel ``name``, named by a hash of its source, the
+    headers it includes and the flags, so that an edit to any of them
+    builds it anew."""
+    h = hashlib.sha256()
+    for rel in _sources(name):
+        h.update(rel.encode() + b"\0" + (CSRC / rel).read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, str]:

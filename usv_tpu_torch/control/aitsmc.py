@@ -4,7 +4,11 @@
 The control law is the JAX module's reconstruction of the reference's C++
 ``AITSMC``: per-channel adaptive gains Ka with dead zone mu and floor kmin,
 integral-terminal sliding surfaces, the shared surge/yaw model terms and
-thruster allocation, and an asymmetric thruster clip.
+thruster allocation, and an asymmetric thruster clip. The substep loop
+(:func:`aitsmc_compute`) is, where JAX has a ``lax.scan``, one launch of the
+hand-written CUDA kernel ``csrc/aitsmc_substeps.cu`` on CUDA float32 tensors,
+and a Python loop of tensor ops (:func:`_aitsmc_compute_ops`) on every other
+input: the CPU, other dtypes, another beta, and a kept history.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import dataclasses
 import torch
 
 from usv_tpu_torch.control.asmc import stack_history
+from usv_tpu_torch.ops._substeps import state_pairs, state_tensors, takes
+from usv_tpu_torch.ops.aitsmc_cuda import CTRL_FIELDS, aitsmc_substeps_cuda
 from usv_tpu_torch.physics.dynamics import (
     DynamicsState,
     dynamics_step,
@@ -173,6 +179,30 @@ class AitsmcLoopState:
         return dataclasses.replace(self, **changes)
 
 
+def _takes_kernel(gains: AitsmcGains, loop: AitsmcLoopState, setpoint: AitsmcSetpoint,
+                  perturb, n_substeps, dt, keep_history) -> bool:
+    """Whether the inputs are the substep kernel's: CUDA float32 state,
+    setpoint and force of one batch shape on one card, none of them tracked
+    by autograd (the kernel has no backward), the feedforward as such tensors
+    or Python numbers, at least one substep, a Python-number ``dt``, beta 0.5
+    (the square root PyTorch's ``pow`` takes for it), no history kept."""
+    if keep_history or n_substeps < 1 or not isinstance(dt, (int, float)):
+        return False
+    if not (isinstance(gains.beta, (int, float)) and gains.beta == 0.5):
+        return False
+    batch = loop.dyn.vel.shape[:-1]
+    pairs = state_pairs(loop.ctrl, CTRL_FIELDS, loop.dyn, batch)
+    pairs += [(setpoint.u, batch), (setpoint.r, batch)]
+    for ff in (setpoint.dot_u, setpoint.dot_r):
+        if isinstance(ff, torch.Tensor):
+            pairs.append((ff, batch))
+        elif not isinstance(ff, (int, float)):
+            return False
+    if perturb is not None:
+        pairs.append((perturb, batch + (3,)))
+    return takes(loop.dyn.vel.device, pairs)
+
+
 def aitsmc_compute(
     gains: AitsmcGains,
     vparams: VehicleParams,
@@ -190,7 +220,42 @@ def aitsmc_compute(
     :func:`usv_tpu_torch.control.asmc.asmc_compute` does: the last substep's
     debug dict, and every substep's stacked to ``(B, n_substeps)`` only with
     ``keep_history``.
+
+    CUDA float32 inputs without ``keep_history`` run as one launch of the
+    substep kernel (``ops/aitsmc_cuda.py``), bit for bit the loop of tensor
+    ops that every other input runs (:func:`_aitsmc_compute_ops`).
     """
+    if not _takes_kernel(gains, loop, setpoint, perturb, n_substeps, dt, keep_history):
+        return _aitsmc_compute_ops(gains, vparams, loop, setpoint, perturb, n_substeps, dt,
+                                   keep_history)
+    with span("usv.env.substeps"):
+        ctrl, dyn, last = aitsmc_substeps_cuda(
+            *state_tensors(loop.ctrl, CTRL_FIELDS, loop.dyn),
+            (setpoint.u, setpoint.r, setpoint.dot_u, setpoint.dot_r), perturb,
+            (gains, vparams, dt), n_substeps,
+        )
+    ctrl = AitsmcState(**dict(zip(CTRL_FIELDS, ctrl)))
+    # the keys and order of aitsmc_control's debug dict
+    debug = {
+        "e_u": ctrl.e_u_last, "e_r": ctrl.e_r_last, "Ka_u": ctrl.ka_u, "Ka_r": ctrl.ka_r,
+        "sigma_u": last["sigma_u"], "sigma_r": last["sigma_r"],
+        "tport": last["tport"], "tstbd": last["tstbd"],
+    }
+    return AitsmcLoopState(ctrl=ctrl, dyn=DynamicsState(*dyn)), debug, None
+
+
+def _aitsmc_compute_ops(
+    gains: AitsmcGains,
+    vparams: VehicleParams,
+    loop: AitsmcLoopState,
+    setpoint: AitsmcSetpoint,
+    perturb=None,
+    n_substeps: int = 5,
+    dt: float = 0.01,
+    keep_history: bool = False,
+):
+    """:func:`aitsmc_compute` as a Python loop of tensor ops: every input but
+    the kernel's, and the kernel's reference in the tests on the card."""
     if perturb is None:
         px = py = pz = 0.0
     else:

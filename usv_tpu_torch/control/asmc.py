@@ -24,6 +24,7 @@ import dataclasses
 import torch
 
 from usv_tpu_torch.core.angles import wrap_angle, wrap_angle_once
+from usv_tpu_torch.ops._substeps import state_pairs, state_tensors, takes
 from usv_tpu_torch.ops.asmc_cuda import CTRL_FIELDS, asmc_substeps_cuda
 from usv_tpu_torch.physics.dynamics import (
     DynamicsState,
@@ -223,15 +224,10 @@ def _takes_kernel(loop: AsmcLoopState, action, n_substeps, dt, perturb_freq,
     if not all(isinstance(x, (int, float)) for x in (dt, perturb_freq, perturb_magnitude)):
         return False
     batch = loop.perturb_step.shape
-    ctrl = [getattr(loop.ctrl, f) for f in CTRL_FIELDS]
-    dyn = [loop.dyn.pose, loop.dyn.vel, loop.dyn.accel_last, loop.dyn.eta_dot_last]
-    shapes = [batch] * len(ctrl) + [batch + (3,)] * len(dyn) + [batch + (2,)]
-    return (action.device.type == "cuda"
-            and loop.perturb_step.dtype == torch.int32
+    pairs = state_pairs(loop.ctrl, CTRL_FIELDS, loop.dyn, batch) + [(action, batch + (2,))]
+    return (loop.perturb_step.dtype == torch.int32
             and loop.perturb_step.device == action.device
-            and all(isinstance(t, torch.Tensor) and t.dtype == torch.float32
-                    and t.device == action.device and t.shape == shape and not t.requires_grad
-                    for t, shape in zip(ctrl + dyn + [action], shapes)))
+            and takes(action.device, pairs))
 
 
 def asmc_compute(
@@ -271,10 +267,8 @@ def asmc_compute(
                                  keep_history)
     with span("usv.env.substeps"):
         ctrl, dyn, perturb_step, last = asmc_substeps_cuda(
-            [getattr(loop.ctrl, f).contiguous() for f in CTRL_FIELDS],
-            [t.contiguous() for t in (loop.dyn.pose, loop.dyn.vel, loop.dyn.accel_last,
-                                      loop.dyn.eta_dot_last)],
-            loop.perturb_step.contiguous(), action,
+            *state_tensors(loop.ctrl, CTRL_FIELDS, loop.dyn), loop.perturb_step.contiguous(),
+            action,
             (gains, vparams, dt, perturb_freq, perturb_magnitude),
             n_substeps, absolute_heading, bool(do_perturb),
         )

@@ -20,7 +20,8 @@
 //                       perturb_step + i, rotated into the body frame;
 //   dynamics_step       thrust allocation, the Fossen 3-DOF acceleration
 //                       (speed-dependent damping, CRB + CA Coriolis, M^-1 in
-//                       closed form), and the trapezoids of nu and then eta.
+//                       closed form), and the trapezoids of nu and then eta:
+//                       csrc/fossen.cuh, which the AITSMC kernel shares.
 // It stores the advanced controller state (10 floats), the dynamics state
 // (pose, vel, accel_last, eta_dot_last: 12 floats), perturb_step + n, and
 // the last substep's e_psi, sigma_u, sigma_psi, tport, tstbd, tx, tz.
@@ -63,27 +64,11 @@
 //     (0 < a) - (a < 0), 0 at 0 and at NaN; a `torch.where` is a select of
 //     both computed branches.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
 #include <string.h>
 
-namespace {
+#include "fossen.cuh"
 
-// physics/dynamics.py's Python-side constants, folded as it folds them.
-struct FossenConstants {
-  // hydrodynamic_coefficients
-  float u_fast, xu_fast, xu_slow, xuu_fast, xuu_slow;
-  float yv_scale, yv_form, yr_scale, nv_scale, nr_scale, hull_d, hull_k;
-  // surge_yaw_model_terms
-  float m_minus_yvd, g_u, neg_xud_plus_yvd, g_psi;
-  // thruster_allocation
-  float c, half_b;
-  // fossen_acceleration
-  float neg_m, m, y_v_dot, neg_y_v_dot, half_yrd_nvd, xud_m;
-  float yvv, yvr, yrv, yrr, nvv, nvr, nrv, nrr;
-  float inv_m11, m22, m23, m32, m33, inv_det;
-};
+namespace {
 
 // control/asmc.py::asmc_control's Python-side constants.
 struct AsmcConstants {
@@ -125,14 +110,6 @@ struct Outputs {
   int32_t* perturb_step;
 };
 
-struct Vec3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ float sign_of(float a) {
-  return (float)((0.0f < a) - (a < 0.0f));
-}
-
 // core/angles.py::wrap_angle
 __device__ __forceinline__ float wrap_angle(float a) {
   return atan2f(sinf(a), cosf(a));
@@ -144,107 +121,6 @@ __device__ __forceinline__ float wrap_angle_once(float a, const AsmcConstants& k
   const float wrapped = sign_of(a) * (m - k.two_pi);
   return m > k.pi ? wrapped : a;
 }
-
-__device__ __forceinline__ Vec3 load3(const float* p, long long b) {
-  return {p[3 * b], p[3 * b + 1], p[3 * b + 2]};
-}
-
-__device__ __forceinline__ void store3(float* p, long long b, Vec3 v) {
-  p[3 * b] = v.x;
-  p[3 * b + 1] = v.y;
-  p[3 * b + 2] = v.z;
-}
-
-// ---------------------------------------------------------------------------
-// The Fossen model, physics/dynamics.py op for op, apart from the controller:
-// the AITSMC loop's kernel can share it.
-
-struct Hydro {
-  float Xu, Xuu, Yv, Yr, Nv, Nr;
-};
-
-// hydrodynamic_coefficients
-__device__ __forceinline__ Hydro hydrodynamic_coefficients(const FossenConstants& k, float u,
-                                                           float v) {
-  const bool fast = fabsf(u) > k.u_fast;
-  Hydro h;
-  h.Xu = fast ? k.xu_fast : k.xu_slow;
-  h.Xuu = fast ? k.xuu_fast : k.xuu_slow;
-  const float speed = sqrtf(u * u + v * v);
-  h.Yv = k.yv_scale * fabsf(v) * 0.5f * k.yv_form;
-  h.Yr = k.yr_scale * speed * k.hull_d * k.hull_d * k.hull_k;
-  h.Nv = k.nv_scale * speed * k.hull_d * k.hull_d * k.hull_k;
-  h.Nr = k.nr_scale * speed * k.hull_d * k.hull_d * k.hull_k * k.hull_k;
-  return h;
-}
-
-// surge_yaw_model_terms: (f_u, f_psi); g_u and g_psi are constants
-__device__ __forceinline__ void surge_yaw_model_terms(const FossenConstants& k, const Hydro& h,
-                                                      Vec3 vel, float* f_u, float* f_psi) {
-  const float u = vel.x, v = vel.y, r = vel.z;
-  *f_u = (k.m_minus_yvd * v * r + (h.Xuu * fabsf(u) + h.Xu * u)) * k.g_u;
-  *f_psi = (k.neg_xud_plus_yvd * u * v + h.Nr * r) * k.g_psi;
-}
-
-// fossen_acceleration, with the coefficients of the same vel
-__device__ __forceinline__ Vec3 fossen_acceleration(const FossenConstants& k, const Hydro& h,
-                                                    Vec3 vel, float tau_x, float tau_y,
-                                                    float tau_z) {
-  const float u = vel.x, v = vel.y, r = vel.z;
-  const float c13 = k.neg_m * v + 2.0f * (k.y_v_dot * v + k.half_yrd_nvd * r);
-  const float c23 = k.m * u - k.xud_m * u;
-  const float c31 = k.m * v + 2.0f * (k.neg_y_v_dot * v - k.half_yrd_nvd * r);
-  const float c32 = k.neg_m * u + k.xud_m * u;
-
-  const float abs_u = fabsf(u), abs_v = fabsf(v), abs_r = fabsf(r);
-  const float d11 = -h.Xu - h.Xuu * abs_u;
-  const float d22 = -h.Yv - (k.yvv * abs_v + k.yvr * abs_r);
-  const float d23 = -h.Yr - (k.yrv * abs_v + k.yrr * abs_r);
-  const float d32 = -h.Nv - (k.nvv * abs_v + k.nvr * abs_r);
-  const float d33 = -h.Nr - (k.nrv * abs_v + k.nrr * abs_r);
-
-  const float rhs_u = tau_x - c13 * r - d11 * u;
-  const float rhs_v = tau_y - c23 * r - (d22 * v + d23 * r);
-  const float rhs_r = tau_z - (c31 * u + c32 * v) - (d32 * v + d33 * r);
-
-  return {rhs_u * k.inv_m11, (k.m33 * rhs_v - k.m23 * rhs_r) * k.inv_det,
-          (k.m22 * rhs_r - k.m32 * rhs_v) * k.inv_det};
-}
-
-struct Dynamics {
-  Vec3 pose, vel, accel_last, eta_dot_last;
-};
-
-// dynamics_step: thrust -> acceleration -> the trapezoids. `h` holds the
-// coefficients of s.vel; cos_psi, sin_psi those of s.pose.z. A perturbed
-// step adds (perturb_x, perturb_y) to tau_x and to a zero tau_y, as the
-// tensor ops add them.
-__device__ __forceinline__ void dynamics_step(const FossenConstants& k, float half_dt,
-                                              const Hydro& h, float cos_psi, float sin_psi,
-                                              Dynamics& s, float tport, float tstbd,
-                                              bool perturbed, float perturb_x, float perturb_y) {
-  float tau_x = tport + k.c * tstbd;
-  const float tau_z = k.half_b * (tport - k.c * tstbd);
-  float tau_y = 0.0f;
-  if (perturbed) {
-    tau_x = tau_x + perturb_x;
-    tau_y = tau_y + perturb_y;
-  }
-  const Vec3 a = fossen_acceleration(k, h, s.vel, tau_x, tau_y, tau_z);
-  const Vec3 vel = {s.vel.x + half_dt * (a.x + s.accel_last.x),
-                    s.vel.y + half_dt * (a.y + s.accel_last.y),
-                    s.vel.z + half_dt * (a.z + s.accel_last.z)};
-  const Vec3 eta_dot = {cos_psi * vel.x - sin_psi * vel.y, sin_psi * vel.x + cos_psi * vel.y,
-                        vel.z};
-  s.pose = {s.pose.x + half_dt * (eta_dot.x + s.eta_dot_last.x),
-            s.pose.y + half_dt * (eta_dot.y + s.eta_dot_last.y),
-            s.pose.z + half_dt * (eta_dot.z + s.eta_dot_last.z)};
-  s.vel = vel;
-  s.accel_last = a;
-  s.eta_dot_last = eta_dot;
-}
-
-// ---------------------------------------------------------------------------
 
 // AsmcState, control/asmc.py's field order
 struct Ctrl {

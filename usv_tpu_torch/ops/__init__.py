@@ -1,6 +1,8 @@
 """The ray-cast sensor: the plain PyTorch form, the CUDA kernel's launcher
-(``raycast_cuda``) and the backend dispatch the envs call; and the ASMC
-substep kernel's launcher (``asmc_cuda``), which ``control/asmc.py`` calls."""
+(``raycast_cuda``) and the backend dispatch the envs call; and the substep
+kernels' launchers, ``asmc_cuda`` and ``aitsmc_cuda``, which
+``control/asmc.py`` and ``control/aitsmc.py`` call, and what the four share
+(``_substeps``)."""
 
 from usv_tpu_torch.ops.raycast import (
     raycast,

@@ -105,8 +105,11 @@ class LaunchCounter:
 counter = LaunchCounter()
 #: the ASMC substep kernel's launches (``ops/asmc_cuda.py::asmc_substeps_cuda``)
 substep_counter = LaunchCounter()
+#: the AITSMC substep kernel's launches
+#: (``ops/aitsmc_cuda.py::aitsmc_substeps_cuda``)
+aitsmc_substep_counter = LaunchCounter()
 #: every kernel's counter, which a capture tallies and a replay adds to
-LAUNCH_COUNTERS = (counter, substep_counter)
+LAUNCH_COUNTERS = (counter, substep_counter, aitsmc_substep_counter)
 
 
 class EnvStepCounter:
