@@ -233,7 +233,7 @@ def test_packed_constants_are_the_eager_loops_scalars(dt, freq, magnitude):
 def test_a_capture_tallies_every_kernels_launches():
     assert asmc_cuda.counter is timing.substep_counter
     assert timing.LAUNCH_COUNTERS == (timing.counter, timing.substep_counter,
-                                      timing.aitsmc_substep_counter)
+                                      timing.aitsmc_substep_counter, timing.vmap_counter)
     ray, sub = timing.counter.launches, timing.substep_counter.launches
     timing.add_replay({timing.counter: 1, timing.substep_counter: 2})
     assert (timing.counter.launches - ray, timing.substep_counter.launches - sub) == (1, 2)

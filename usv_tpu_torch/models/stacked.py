@@ -24,6 +24,8 @@ import torch
 from torch import nn
 from torch.func import functional_call, vmap
 
+from usv_tpu_torch.timing import vmap_counter
+
 
 class _Call(nn.Module):
     """``forward(name, *args)`` calls the wrapped module's method ``name``
@@ -104,7 +106,10 @@ def vmap_members(fn: Callable, stacks: Sequence[Stacked], *args):
     in ``args`` (nested in tuples, lists or dicts as ``vmap`` allows) has the
     member axis first. ``fn`` sees one :class:`Member` per stack and one
     member's slice of each argument; its outputs gain the member axis.
-    Non-tensor constants belong in ``fn``'s closure."""
+    Non-tensor constants belong in ``fn``'s closure. Each call adds one to
+    ``timing.vmap_counter`` (to a capture's tally while a CUDA graph
+    captures)."""
+    vmap_counter.launched()
 
     def inner(plists, *member_args):
         return fn(*(Member(s, p) for s, p in zip(stacks, plists)), *member_args)

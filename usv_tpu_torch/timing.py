@@ -1,8 +1,8 @@
 """The port's measurement tools: device time of a function on the card, by
 CUDA events; its profile (torch.profiler); the named host spans of the
-program's layers; the launch counters of the ray-cast and ASMC substep
-kernels; and the counter of ``BatchedEnv`` steps, replayed from a CUDA graph
-or run op by op.
+program's layers; the launch counters of the ray-cast and substep kernels
+and the call counter of the seed population's ``vmap_members``; and the
+counter of ``BatchedEnv`` steps, replayed from a CUDA graph or run op by op.
 
 Spans. :func:`span` marks a phase of the program (``usv.env.step``,
 ``usv.sac.update``, ...). It does nothing but one check while no profiler
@@ -82,20 +82,28 @@ def reset_spans() -> None:
     _totals.clear()
 
 
+def _capturing() -> bool:
+    """Whether the current stream captures a CUDA graph."""
+    try:
+        return torch.cuda.is_current_stream_capturing()
+    except RuntimeError:  # a build without CUDA cannot ask, and captures nothing
+        return False
+
+
 class LaunchCounter:
-    """Kernel launches of one launcher: ``launches`` is a plain integer that a
-    caller may reset, raised by one where the kernel launches and nowhere
-    else. A call made while the current stream captures a CUDA graph launches
-    nothing: it raises ``captured``, the tally of the graph being captured,
-    which each replay adds to ``launches`` (:func:`graphed`, and the graph
-    of ``BatchedEnv``'s step)."""
+    """Kernel launches of one launcher (or calls of one function): ``launches``
+    is a plain integer that a caller may reset, raised by one where the kernel
+    launches and nowhere else. A call made while the current stream captures
+    a CUDA graph launches nothing: it raises ``captured``, the tally of the
+    graph being captured, which each replay adds to ``launches``
+    (:func:`graphed`, and the graph of ``BatchedEnv``'s step)."""
 
     def __init__(self):
         self.launches = 0
         self.captured = 0
 
     def launched(self) -> None:
-        if torch.cuda.is_current_stream_capturing():
+        if _capturing():
             self.captured += 1
         else:
             self.launches += 1
@@ -108,8 +116,11 @@ substep_counter = LaunchCounter()
 #: the AITSMC substep kernel's launches
 #: (``ops/aitsmc_cuda.py::aitsmc_substeps_cuda``)
 aitsmc_substep_counter = LaunchCounter()
-#: every kernel's counter, which a capture tallies and a replay adds to
-LAUNCH_COUNTERS = (counter, substep_counter, aitsmc_substep_counter)
+#: the seed population's batched network calls
+#: (``models/stacked.py::vmap_members``), counted like a kernel's launches
+vmap_counter = LaunchCounter()
+#: every counter that a capture tallies and a replay adds to
+LAUNCH_COUNTERS = (counter, substep_counter, aitsmc_substep_counter, vmap_counter)
 
 
 class EnvStepCounter:

@@ -674,12 +674,14 @@ class SacLearner:
             frames = ps.batch.frames
             obs = frames.reshape(S * B, -1)
             if cfg.use_sde:
-                normals = per_member(ps.generators, lambda g: torch.randn(
-                    (B, *ps.sde.exploration_mat.shape[1:]), generator=g, device=dev))
+                with span("usv.sac.member_draws"):
+                    normals = per_member(ps.generators, lambda g: torch.randn(
+                        (B, *ps.sde.exploration_mat.shape[1:]), generator=g, device=dev))
                 ps.sde = maybe_resample(ps.sde, None, cfg.sde_sample_freq, normals=normals)
             if ps.env_steps < warmup_steps:
-                u = per_member(ps.generators, lambda g: torch.rand((B, self.act_dim), generator=g,
-                                                                   device=dev))
+                with span("usv.sac.member_draws"):
+                    u = per_member(ps.generators, lambda g: torch.rand((B, self.act_dim),
+                                                                       generator=g, device=dev))
                 actions = u * (self._high - self._low) + self._low
             elif cfg.use_sde:
                 mat = ps.sde.exploration_mat
@@ -688,11 +690,13 @@ class SacLearner:
                     [ps.actor], obs.view(S, B, -1), mat.view(S, B, *mat.shape[1:]),
                     ps.sde.step.view(S, B)).reshape(S * B, -1)
             else:
-                noise = per_member(ps.generators, lambda g: torch.randn((B, self.act_dim),
-                                                                        generator=g, device=dev))
+                with span("usv.sac.member_draws"):
+                    noise = per_member(ps.generators, lambda g: torch.randn((B, self.act_dim),
+                                                                            generator=g, device=dev))
                 actions = vmap_members(lambda actor, o, n: actor.sample(o, noise=n)[0], [ps.actor],
                                        obs.view(S, B, -1), noise.view(S, B, -1)).reshape(S * B, -1)
-            reset = per_member(ps.generators, lambda g: reset_uniform(g, B, width, dev))
+            with span("usv.sac.member_draws"):
+                reset = per_member(ps.generators, lambda g: reset_uniform(g, B, width, dev))
             ps.batch, step = benv.step(ps.batch, actions, uniform=reset)
             terminal = torch.cat([frames[:, 1:], step.info["terminal_observation"][:, None]], 1)
             for name, value in (("obs", obs), ("action", actions), ("reward", step.reward),
@@ -709,7 +713,8 @@ class SacLearner:
     def _update_draws_many(self, ps: SacPopulationState, batch_size: int) -> dict:
         """Each member's :meth:`_update_draws` from its own generator, stacked
         on the member axis."""
-        draws = [self._update_draws(ps, batch_size, g) for g in ps.generators]
+        with span("usv.sac.member_draws"):
+            draws = [self._update_draws(ps, batch_size, g) for g in ps.generators]
         return {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
 
     def _critic_loss_many(self, ps: SacPopulationState, batch, noise_next):
@@ -765,15 +770,19 @@ class SacLearner:
     def train_rounds_many(self, ps: SacPopulationState, n_rounds: int):
         """:meth:`train_rounds` for the population; the warm-up gate on the
         shared fill stays a host integer. Returns ``(ps, (S,) summed
-        rewards)``."""
+        rewards)``. Its spans are :meth:`train_rounds`' two, and
+        ``usv.sac.member_draws`` around each host loop over the members'
+        generators (the collect's and the updates' draws)."""
         cfg = self.cfg
         rewards = []
         for _ in range(n_rounds):
-            ps, reward_sum = self._env_cycle_many(ps)
+            with span("usv.sac.collect"):
+                ps, reward_sum = self._env_cycle_many(ps)
             rewards.append(reward_sum)
             if ps.buffer.size >= min(cfg.learning_starts, cfg.buffer_size):
                 for _ in range(self.updates_per_round()):
-                    self._update_once_many(ps, batch_size=self._fusion * cfg.batch_size)
+                    with span("usv.sac.update"):
+                        self._update_once_many(ps, batch_size=self._fusion * cfg.batch_size)
         return ps, torch.stack(rewards).sum(0)
 
     def take_members(self, ps: SacPopulationState, keep: Sequence[int]) -> SacPopulationState:
